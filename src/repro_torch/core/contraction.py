@@ -1,0 +1,302 @@
+"""Primal: parallel edge contraction (RAMA §3.1, Alg. 1/4).
+
+Port of the replicated half of ``repro.core.contraction``:
+
+* connected components — min-label propagation + pointer jumping;
+* maximum matching — handshaking as mutual-argmax over segment reductions;
+* maximum spanning forest — Borůvka rounds with component freezing;
+* contraction — relabel endpoints by component, then ONE sort over the 2E
+  directed edge copies that both merges parallel edges and emits the
+  contracted graph's CSR (:func:`contract_csr`), which the solver carries
+  to the next round.
+
+Integer min/max scatters are order-free, so they use ``scatter_reduce_``.
+The one float reduction (merged edge costs) runs in a fixed order.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.graph import CsrGraph, MulticutInstance, \
+    csr_lookup_edge, lexsort
+from repro_torch.sparse.segment_ops import segment_argmax
+
+# connected_components tests for convergence every CC_CHECK_EVERY steps: a
+# step after convergence is a no-op (the min-scatter and the pointer jumps
+# change nothing at a fixed point), so the labels are bit-identical to the
+# reference's check-every-step while_loop, with fewer host syncs
+CC_CHECK_EVERY = 4
+
+
+def _scatter_extreme(n: int, fill, index, src, reduce: str):
+    out = torch.full((n,), fill, dtype=src.dtype, device=src.device)
+    return out.scatter_reduce_(0, index.long(), src, reduce,
+                               include_self=True)
+
+
+# ---------------------------------------------------------------------------
+# Connected components
+# ---------------------------------------------------------------------------
+
+def connected_components(u, v, edge_mask, num_nodes: int):
+    """Min-label propagation with pointer jumping. Returns (N,) labels where
+    each node's label is the smallest node id in its component (w.r.t.
+    edges where ``edge_mask`` is True).
+
+    The reference's ``while_loop`` has no host sync; here each convergence
+    test is one, so it runs every ``CC_CHECK_EVERY`` steps (see above)."""
+    labels = torch.arange(num_nodes, dtype=torch.int32, device=u.device)
+    ul, vl = u.long(), v.long()
+    while True:
+        prev = labels
+        for _ in range(CC_CHECK_EVERY):
+            lu, lv = labels[ul], labels[vl]
+            m = torch.minimum(lu, lv)
+            new = labels.scatter_reduce(0, ul, torch.where(edge_mask, m, lu),
+                                        "amin", include_self=True)
+            new = new.scatter_reduce(0, vl, torch.where(edge_mask, m, lv),
+                                     "amin", include_self=True)
+            new = new[new.long()]           # pointer jumping (twice)
+            labels = new[new.long()]
+        if not bool((labels != prev).any()):
+            return labels
+
+
+# ---------------------------------------------------------------------------
+# Contraction set strategies
+# ---------------------------------------------------------------------------
+
+def _node_best_positive_edge(u, v, cost, active, num_nodes: int):
+    """For every node, the index of its best (max-cost) active incident edge
+    (ties toward the smallest concat index). Returns (N,) edge index or
+    -1."""
+    E = u.shape[0]
+    eidx = torch.arange(E, dtype=torch.int32, device=u.device)
+    seg = torch.cat([u, v])
+    val = torch.cat([cost, cost])
+    msk = torch.cat([active, active])
+    edge_of = torch.cat([eidx, eidx])
+    arg, _ = segment_argmax(val, seg, num_nodes, mask=msk)
+    return torch.where(arg >= 0, edge_of[arg.long().clamp(min=0)],
+                       torch.full_like(arg, -1))
+
+
+def maximum_matching(inst: MulticutInstance, rounds: int = 3,
+                     min_cost=0.0):
+    """Handshaking matching on attractive edges: an edge joins the matching
+    when both endpoints pick it as their best incident edge. ``rounds``
+    re-runs on still-free nodes to thicken the matching."""
+    N, E = inst.num_nodes, inst.num_edges
+    u, v, cost = inst.u, inst.v, inst.cost
+    S = torch.zeros(E, dtype=torch.bool, device=u.device)
+    free = inst.node_valid
+    eidx = torch.arange(E, dtype=torch.int32, device=u.device)
+    ul, vl = u.long(), v.long()
+    for _ in range(rounds):
+        active = inst.edge_valid & (cost > min_cost) & free[ul] & free[vl]
+        best = _node_best_positive_edge(u, v, cost, active, N)
+        sel = active & (best[ul] == eidx) & (best[vl] == eidx)
+        S = S | sel
+        s32 = sel.to(torch.int32)
+        matched = _scatter_extreme(N, 0, ul, s32, "amax")
+        matched = matched.scatter_reduce(0, vl, s32, "amax") > 0
+        free = free & ~matched
+    return S
+
+
+def spanning_forest_contraction(inst: MulticutInstance, rounds: int = 4,
+                                min_cost=0.0):
+    """Borůvka-style maximum spanning forest on attractive edges with
+    conflict freezing: a round that would place a repulsive edge inside a
+    component is reverted for that component."""
+    N, E = inst.num_nodes, inst.num_edges
+    u, v, cost = inst.u, inst.v, inst.cost
+    ul, vl = u.long(), v.long()
+    dev = u.device
+    neg = inst.edge_valid & (cost < 0)
+    S = torch.zeros(E, dtype=torch.bool, device=dev)
+    labels = torch.arange(N, dtype=torch.int32, device=dev)
+    eidx = torch.arange(E, dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        cl_u, cl_v = labels[ul], labels[vl]
+        active = inst.edge_valid & (cost > min_cost) & (cl_u != cl_v)
+        # best outgoing edge per component (keyed by component root label)
+        seg = torch.cat([cl_u, cl_v])
+        val = torch.cat([cost, cost])
+        msk = torch.cat([active, active])
+        edge_of = torch.cat([eidx, eidx])
+        arg, _ = segment_argmax(val, seg, N, mask=msk)
+        best_edge = torch.where(arg >= 0, edge_of[arg.long().clamp(min=0)],
+                                torch.full_like(arg, -1))
+        cand = _scatter_extreme(E, 0, best_edge.clamp(min=0),
+                                (best_edge >= 0).to(torch.int32), "amax") > 0
+        cand = cand & active
+        S_try = S | cand
+        labels_try = connected_components(u, v, S_try, N)
+        lt_u, lt_v = labels_try[ul], labels_try[vl]
+        # conflict: repulsive edge newly internal to a merged component
+        conflict = neg & (lt_u == lt_v) & (labels[ul] != labels[vl])
+        frozen = _scatter_extreme(N, 0, lt_u, conflict.to(torch.int32),
+                                  "amax") > 0
+        keep = cand & ~frozen[lt_u.long()] & ~frozen[lt_v.long()]
+        S = S | keep
+        labels = connected_components(u, v, S, N)
+    return S
+
+
+def choose_contraction_set(inst: MulticutInstance, matching_rounds: int = 3,
+                           forest_rounds: int = 4, switch_frac: float = 0.1,
+                           contract_frac: float = 0.0):
+    """Paper §3.1: matching first; if it matched fewer than
+    ``switch_frac * |V|`` edges, use the spanning forest instead (both are
+    computed and selected on the device, no host sync). Never returns fewer
+    edges than the matching found. ``contract_frac`` > 0 keeps only edges
+    above that fraction of the round's maximum positive cost."""
+    min_cost = 0.0
+    if contract_frac > 0.0:
+        cmax = torch.where(inst.edge_valid, inst.cost,
+                           torch.zeros_like(inst.cost)).max()
+        min_cost = contract_frac * cmax.clamp(min=0.0)
+    S_match = maximum_matching(inst, rounds=matching_rounds,
+                               min_cost=min_cost)
+    n_nodes = inst.node_valid.sum()
+    n_match = S_match.sum()
+    enough = n_match >= switch_frac * n_nodes
+    S_forest = spanning_forest_contraction(inst, rounds=forest_rounds,
+                                           min_cost=min_cost)
+    use_match = enough | (S_forest.sum() < n_match)
+    return torch.where(use_match, S_match, S_forest)
+
+
+# ---------------------------------------------------------------------------
+# Contraction (Lemma 4)
+# ---------------------------------------------------------------------------
+
+class ContractionResult(NamedTuple):
+    instance: MulticutInstance
+    mapping: torch.Tensor         # (N,) old node -> new compact node id
+    n_new: torch.Tensor           # scalar: number of live clusters
+    self_loop_gain: torch.Tensor  # Lemma 4(b): total cost absorbed
+    n_contracted: torch.Tensor    # edges contracted this round
+
+
+def _fixed_order_run_sum(values, seg, is_entry, num_segments: int):
+    """Sum ``values`` of the entries with ``is_entry`` into ``seg`` in
+    array order, where ``seg`` is nondecreasing over those entries. The
+    other entries hold 0.0 and are folded into the run they follow (adding
+    0.0 leaves a sum unchanged), so the segments are contiguous and one
+    ``segment_reduce`` sums each in order — a fixed order with no sort and
+    no atomics, equal on the CPU to the reference's sequential segment_sum.
+    """
+    key = torch.where(is_entry, seg, torch.full_like(seg, -1))
+    run_seg = torch.cummax(key, dim=0).values.long() + 1    # 0 = lead-in
+    lengths = torch.zeros(num_segments + 1, dtype=torch.int64,
+                          device=values.device)
+    lengths.scatter_add_(0, run_seg, torch.ones_like(run_seg))
+    data = torch.where(is_entry, values, torch.zeros_like(values))
+    return torch.segment_reduce(data, "sum", lengths=lengths,
+                                unsafe=True)[1:]
+
+
+def _contract_core(inst: MulticutInstance, S: torch.Tensor):
+    """Relabel endpoints by component, then one sort over the 2E directed
+    edge copies that both merges parallel edges (sum costs, new edge ids in
+    (lo, hi) order) and yields the contracted graph's CSR. Returns
+    (ContractionResult, CsrGraph)."""
+    N, E = inst.num_nodes, inst.num_edges
+    dev = inst.u.device
+    labels = connected_components(inst.u, inst.v, S & inst.edge_valid, N)
+    ar_n = torch.arange(N, dtype=torch.int32, device=dev)
+    is_root = (labels == ar_n) & inst.node_valid
+    new_id = torch.cumsum(is_root.to(torch.int32), 0, dtype=torch.int32) - 1
+    f = new_id[labels.long()]
+    f = torch.where(inst.node_valid, f, torch.zeros_like(f))
+    n_new = is_root.sum()
+
+    fu, fv = f[inst.u.long()], f[inst.v.long()]
+    self_loop = inst.edge_valid & (fu == fv)
+    gain = torch.where(self_loop, inst.cost,
+                       torch.zeros_like(inst.cost)).sum()
+    valid = inst.edge_valid & ~self_loop
+
+    # the one sort: 2E directed copies by (src, dst, original edge id); dead
+    # copies get sentinel endpoints that sort past every live row.
+    # reference: jnp.lexsort((tile(eid0, 2), dst, src)) — chained stable
+    # sorts (a packed (src, dst, eid) int64 key overflows at paper scale)
+    eid0 = torch.arange(E, dtype=torch.int32, device=dev)
+    m = torch.cat([valid, valid])
+    sent = torch.full((2 * E,), N, dtype=torch.int32, device=dev)
+    src = torch.where(m, torch.cat([fu, fv]), sent)
+    dst = torch.where(m, torch.cat([fv, fu]), sent)
+    order = lexsort((eid0.repeat(2), dst, src))
+    s, d = src[order], dst[order]
+    w_s = inst.cost.repeat(2)[order]
+    live = m[order]
+    nnz = 2 * E
+
+    # runs of equal (src, dst) = unique directed pairs = CSR entries;
+    # compacting run heads to their run rank keeps them sorted
+    head = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                      (s[1:] != s[:-1]) | (d[1:] != d[:-1])])
+    is_new = live & head
+    rid = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
+    cpos = torch.where(is_new, rid, torch.full_like(rid, nnz)).long()
+    cs = torch.full((nnz + 1,), N, dtype=torch.int32, device=dev) \
+        .scatter_(0, cpos, s)[:nnz]
+    cd = torch.full((nnz + 1,), N, dtype=torch.int32, device=dev) \
+        .scatter_(0, cpos, d)[:nnz]
+    row_ptr = torch.searchsorted(
+        cs, torch.arange(N + 1, dtype=torch.int32, device=dev),
+        side="left").to(torch.int32)
+
+    # undirected edge ids: forward pairs (src < dst) appear in (lo, hi)
+    # order, so their rank is the new edge id; each backward pair bisects
+    # row ``dst`` for its forward partner's id
+    fwd = cs < cd
+    new_eid = torch.cumsum(fwd.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_unique = fwd.sum()
+    minus1 = torch.full_like(new_eid, -1)
+    probe = CsrGraph(row_ptr=row_ptr, col=cd,
+                     edge_id=torch.where(fwd, new_eid, minus1))
+    partner = csr_lookup_edge(probe, torch.where(cs < N, cd,
+                                                 torch.zeros_like(cd)), cs)
+    eid_c = torch.where(fwd, new_eid, partner)
+    eid_c = torch.where(cs < N, eid_c, minus1).to(torch.int32)
+    csr = CsrGraph(row_ptr=row_ptr, col=cd, edge_id=eid_c)
+
+    # contracted COO: scatter run heads by new id, sum the costs of each
+    # forward run in entry order (entries ascend by original edge id — the
+    # sorts are stable), so the accumulation order is fixed
+    fw_dest = torch.where(fwd, new_eid, torch.full_like(new_eid, E)).long()
+    u2 = torch.zeros(E + 1, dtype=torch.int32, device=dev) \
+        .scatter_(0, fw_dest, cs)[:E]
+    v2 = torch.zeros(E + 1, dtype=torch.int32, device=dev) \
+        .scatter_(0, fw_dest, cd)[:E]
+    fw_entry = live & (s < d)
+    seg = eid_c[rid.long().clamp(0, nnz - 1)]
+    c2 = _fixed_order_run_sum(w_s, seg, fw_entry, E)
+    ev2 = torch.arange(E, device=dev) < n_unique
+    c2 = torch.where(ev2, c2, torch.zeros_like(c2))
+
+    node_valid = torch.arange(N, device=dev) < n_new
+    out = MulticutInstance(u=u2, v=v2, cost=c2, edge_valid=ev2,
+                           node_valid=node_valid)
+    res = ContractionResult(instance=out, mapping=f, n_new=n_new,
+                            self_loop_gain=gain,
+                            n_contracted=(S & inst.edge_valid).sum())
+    return res, csr
+
+
+def contract(inst: MulticutInstance, S: torch.Tensor) -> ContractionResult:
+    """Contract edge set S: relabel endpoints by component, merge parallel
+    edges by summing costs (Alg. 4's sort + reduce_by_key)."""
+    return _contract_core(inst, S)[0]
+
+
+def contract_csr(inst: MulticutInstance, S: torch.Tensor):
+    """Contract edge set S and also return the contracted graph's
+    :class:`CsrGraph`, maintained from the contraction's own sort (equal
+    to a fresh ``build_csr``). The solver carries it to the next round."""
+    return _contract_core(inst, S)

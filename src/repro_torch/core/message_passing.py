@@ -1,0 +1,139 @@
+"""Dual: parallel message passing / dual block coordinate ascent (Alg. 2).
+
+Port of the replicated half of ``repro.core.message_passing``. Lagrange
+decomposition (5): edge subproblems (min(0, c^λ_e)) + triangle subproblems
+over M_T = {(0,0,0),(1,1,0),(1,0,1),(0,1,1),(1,1,1)}; every triangle is
+updated independently, so one pass runs over all triangles at once. The
+triangle→edge sweep is the hot spot, done by the ``triangle_mp`` kernel
+through the ``sweep=`` hook.
+
+Triangle costs are stored directly (t_cost = −λ); the reparametrised edge
+cost is c^λ_e = c_e − Σ_t t_cost[t, slot(e)].
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.cycles import Triangles
+from repro_torch.sparse.segment_ops import SegmentPlan, segment_plan, \
+    segment_sum
+
+
+class MPState(NamedTuple):
+    t_cost: torch.Tensor     # (T, 3) triangle subproblem costs c_t^λ = -λ_t
+    tri: torch.Tensor        # (T, 3) edge ids
+    tri_valid: torch.Tensor  # (T,)
+
+
+def init_mp(triangles: Triangles) -> MPState:
+    T = triangles.edges.shape[0]
+    return MPState(t_cost=torch.zeros((T, 3), dtype=torch.float32,
+                                      device=triangles.edges.device),
+                   tri=triangles.edges, tri_valid=triangles.valid)
+
+
+def edge_degree(state: MPState, num_edges: int) -> torch.Tensor:
+    """Number of triangles containing each edge (an exact integer count)."""
+    ones = state.tri_valid[:, None].expand(state.tri.shape).to(torch.int64)
+    return segment_sum(ones.reshape(-1), state.tri.reshape(-1),
+                       num_edges).to(torch.int32)
+
+
+def reparametrized_costs(cost, state: MPState,
+                         plan: SegmentPlan | None = None) -> torch.Tensor:
+    """c^λ_e = c_e + Σ_{t ∋ e} λ_{t,e} = c_e − Σ t_cost.
+
+    The sum is a float segment sum in a fixed order (each edge's entries in
+    triangle order — see :mod:`repro_torch.sparse.segment_ops`), never an
+    atomic scatter-add. ``plan`` reuses the sort of the triangle edge ids
+    across iterations (they do not change during one MP phase)."""
+    E = cost.shape[0]
+    if plan is None:
+        plan = segment_plan(state.tri.reshape(-1), E)
+    contrib = torch.where(state.tri_valid[:, None], -state.t_cost,
+                          torch.zeros_like(state.t_cost))
+    return cost + plan.sum(contrib)
+
+
+def _mm_single(t_cost, slot):
+    """Min-marginal of one edge slot (0/1/2) of each triangle."""
+    a = t_cost[..., slot]
+    b = t_cost[..., (slot + 1) % 3]
+    c = t_cost[..., (slot + 2) % 3]
+    s = b + c
+    return a + torch.minimum(torch.minimum(b, c), s) \
+        - torch.minimum(s, torch.zeros_like(s))
+
+
+def edges_to_triangles(state: MPState, cost: torch.Tensor,
+                       plan: SegmentPlan | None = None,
+                       deg: torch.Tensor | None = None):
+    """Lines 1–6: each edge pushes its reparametrized cost uniformly onto the
+    triangles containing it. After the update c^λ_e = 0 for every covered
+    edge."""
+    E = cost.shape[0]
+    c_rep = reparametrized_costs(cost, state, plan)
+    if deg is None:
+        deg = edge_degree(state, E)
+    share = torch.where(deg > 0, c_rep / deg.clamp(min=1),
+                        torch.zeros_like(c_rep))
+    upd = share[state.tri.long()] * state.tri_valid[:, None]
+    return state._replace(t_cost=state.t_cost + upd)
+
+
+def triangles_to_edges(state: MPState, sweep=None):
+    """Lines 7–14: per-triangle sequential sweep distributing min-marginals
+    back to the edges. ``sweep`` swaps in the kernel ((T,3) → (T,3));
+    invalid rows keep their costs (masked here, outside the kernel, as in
+    the reference)."""
+    if sweep is None:
+        sweep = mp_sweep_reference
+    new_cost = sweep(state.t_cost)
+    new_cost = torch.where(state.tri_valid[:, None], new_cost, state.t_cost)
+    return state._replace(t_cost=new_cost)
+
+
+def mp_sweep_reference(t_cost: torch.Tensor) -> torch.Tensor:
+    """Plain oracle of the triangle sweep (Alg. 2 lines 8–13):
+    e1 += 1/3·m1; e2 += 1/2·m2; e3 += 1·m3; e1 += 1/2·m1; e2 += 1·m2;
+    e1 += 1·m1 — each on the *current* costs (λ += γm ⇔ cost −= γm)."""
+    tc = t_cost
+    for slot, gamma in ((0, 1.0 / 3.0), (1, 1.0 / 2.0), (2, 1.0),
+                        (0, 1.0 / 2.0), (1, 1.0), (0, 1.0)):
+        m = _mm_single(tc, slot)
+        col = tc[..., slot] + (-gamma) * m
+        tc = torch.cat([tc[..., :slot], col[..., None], tc[..., slot + 1:]],
+                       dim=-1)
+    return tc
+
+
+def lower_bound(cost, edge_valid, state: MPState,
+                plan: SegmentPlan | None = None) -> torch.Tensor:
+    """LB(λ) of (5): Σ_e min(0, c^λ_e) + Σ_t min_{y∈M_T} ⟨c_t^λ, y⟩."""
+    c_rep = reparametrized_costs(cost, state, plan)
+    zero = torch.zeros_like(c_rep)
+    lb_e = torch.where(edge_valid, torch.minimum(c_rep, zero), zero).sum()
+    a, b, c = state.t_cost[:, 0], state.t_cost[:, 1], state.t_cost[:, 2]
+    states = torch.stack([torch.zeros_like(a), a + b, a + c, b + c,
+                          a + b + c], dim=-1)
+    mins = states.min(dim=-1).values
+    lb_t = torch.where(state.tri_valid, mins, torch.zeros_like(mins)).sum()
+    return lb_e + lb_t
+
+
+def run_message_passing(cost, edge_valid, state: MPState, iters: int,
+                        sweep=None):
+    """k iterations of Alg. 2. Returns (state, reparametrized costs, LB).
+    The triangle edge ids are fixed for the phase, so their sort order and
+    edge degrees are computed once."""
+    E = cost.shape[0]
+    plan = segment_plan(state.tri.reshape(-1), E)
+    deg = edge_degree(state, E)
+    for _ in range(iters):
+        state = edges_to_triangles(state, cost, plan, deg)
+        state = triangles_to_edges(state, sweep=sweep)
+    c_rep = reparametrized_costs(cost, state, plan)
+    lb = lower_bound(cost, edge_valid, state, plan)
+    return state, c_rep, lb

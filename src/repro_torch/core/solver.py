@@ -1,0 +1,240 @@
+"""Primal-dual multicut solver (RAMA Alg. 3), PD / PD+ on the sparse path.
+
+Port of ``repro.core.solver`` for the main path: modes ``pd`` and ``pd+``
+on the sparse CSR data path. Each round runs separation → message passing
+→ reparametrise → contract on a fixed-shape padded instance; the CSR is
+built once per solve and maintained by contraction (:class:`SolverState`).
+
+The reference runs the outer loop as a ``lax.while_loop`` with no host
+sync. Torch runs eagerly, so this loop reads the round's contraction count
+to exit early on zero — one host sync per round — and the connected
+components and long-bucket separation pass add their own. CUDA graphs come
+later.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.core.contraction import choose_contraction_set, \
+    contract_csr
+from repro_torch.core.cycles import separate
+from repro_torch.core.graph import (
+    DEFAULT_SPARSE_THRESHOLD, GRAPH_IMPLS, CsrGraph, MulticutInstance,
+    csr_from_instance, resolve_graph_impl,
+)
+from repro_torch.core.message_passing import init_mp, run_message_passing
+
+MODES = ("p", "pd", "pd+", "d")
+# "cuda" = the hand-written kernels (the default; on a CPU tensor each
+# kernel wrapper runs its plain version); "reference" = the plain PyTorch
+# versions everywhere, kept so a run on the card can compare the two
+BACKENDS = ("reference", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """RAMA solver hyper-parameters — the reference's fields and defaults,
+    so one config means the same solve in both packages."""
+    max_rounds: int = 16            # outer PD rounds
+    mp_iters: int = 5               # k message-passing iterations per round
+    max_neg: int = 256              # repulsive edges separated per round
+    max_tri_per_edge: int = 4       # triangles per repulsive edge
+    nbr_k: int = 4                  # neighbour fan for 4/5-cycle search
+    first_round_cycles45: bool = True   # PD: length-5 on the original graph
+    always_cycles45: bool = False       # PD+: length-5 every round
+    matching_rounds: int = 3
+    forest_rounds: int = 4
+    switch_frac: float = 0.1
+    contract_frac: float = 0.0      # GAEC-like conservatism (0 = paper)
+    dual_rounds: int = 4            # D: separation+MP rounds
+    graph_impl: str = "auto"        # separation data path: dense|sparse|auto
+    sparse_row_cap: int = 128       # CSR row window
+    sparse_row_cap_short: int = 16  # two-level degree buckets (0 disables)
+    sparse_threshold: int = DEFAULT_SPARSE_THRESHOLD
+    separation_chunk: int = 0       # sparse: repulsive edges per chunk
+    separation_shards: int = 1      # sparse: devices for the chunk axis
+    state_shards: int = 0           # >=1: edge-range-partitioned solve
+    delta_halo: int = 2             # warm delta re-solve halo (hops)
+
+    def cache_key(self) -> tuple:
+        """The canonical key: the ordered tuple of field values."""
+        return tuple(getattr(self, f.name)
+                     for f in dataclasses.fields(self))
+
+
+class SolveResult(NamedTuple):
+    """Solve output. History is stacked per-round arrays of length
+    ``max_rounds``; slots past ``rounds`` keep their initial values
+    (lb = -inf, counts = 0)."""
+    labels: torch.Tensor        # (N,) final cluster id per original node
+    objective: torch.Tensor     # () primal objective on the original
+    lower_bound: torch.Tensor   # () dual LB
+    rounds: torch.Tensor        # () i32: rounds actually run
+    lb_history: torch.Tensor    # (R,) f32 per-round dual LB
+    n_contracted: torch.Tensor  # (R,) i32 edges contracted per round
+    n_clusters: torch.Tensor    # (R,) i32 live clusters after each round
+
+    @property
+    def history(self) -> list:
+        """Per-round dicts rebuilt from the stacked arrays (syncs)."""
+        r = int(self.rounds)
+        return [{"round": i, "lb": float(self.lb_history[i]),
+                 "n_contracted": int(self.n_contracted[i]),
+                 "n_clusters": int(self.n_clusters[i])} for i in range(r)]
+
+
+def resolve_sweep(backend: str | None):
+    """Map a backend name to the triangle-sweep implementation."""
+    if backend == "reference":
+        return None     # run_message_passing uses mp_sweep_reference
+    if backend is None or backend == "cuda":
+        from repro_torch.kernels.triangle_mp.ops import mp_sweep
+        return mp_sweep
+    raise ValueError(f"unknown backend {backend!r}; expected one of "
+                     f"{BACKENDS}")
+
+
+def resolve_intersect(backend: str | None):
+    """Map a backend name to the sorted-row intersection of separation."""
+    if backend == "reference":
+        return None     # separate uses intersect_rows_ref
+    if backend is None or backend == "cuda":
+        from repro_torch.kernels.cycle_intersect.ops import intersect_rows
+        return intersect_rows
+    raise ValueError(f"unknown backend {backend!r}; expected one of "
+                     f"{BACKENDS}")
+
+
+class SolverState(NamedTuple):
+    """Solver state threaded through the outer round loop: the current
+    contracted instance, its live all-edges CSR (built once, maintained by
+    :func:`contract_csr`), and the original→cluster mapping."""
+    instance: MulticutInstance
+    csr: CsrGraph
+    mapping: torch.Tensor
+
+
+def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
+                     with45: bool, sweep=None, intersect=None, csr=None):
+    """One separation + message-passing round. Returns (inst', c_rep, lb).
+    The ``repro.*`` ranges name the round's phases in a torch.profiler
+    trace, as the reference's ``jax.named_scope``s do in its HLO."""
+    with record_function("repro.separation"):
+        sep = separate(inst, max_neg=cfg.max_neg,
+                       max_tri_per_edge=cfg.max_tri_per_edge,
+                       with_cycles45=with45, nbr_k=cfg.nbr_k,
+                       graph_impl=cfg.graph_impl,
+                       sparse_row_cap=cfg.sparse_row_cap,
+                       sparse_row_cap_short=cfg.sparse_row_cap_short,
+                       sparse_threshold=cfg.sparse_threshold,
+                       intersect=intersect, csr=csr,
+                       separation_chunk=cfg.separation_chunk,
+                       separation_shards=cfg.separation_shards)
+    inst2 = sep.instance
+    with record_function("repro.message_passing"):
+        state = init_mp(sep.triangles)
+        state, c_rep, lb = run_message_passing(
+            inst2.cost, inst2.edge_valid, state, cfg.mp_iters, sweep=sweep)
+    return inst2, c_rep, lb
+
+
+def fused_pd_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
+                         sweep=None, intersect=None):
+    """The state-carrying PD round: separation reads the carried CSR,
+    contraction maintains it, and the original→cluster mapping composes.
+    Returns (SolverState', lb, ContractionResult)."""
+    inst2, c_rep, lb = _dual_round_core(state.instance, cfg, with45, sweep,
+                                        intersect, csr=state.csr)
+    inst3 = inst2._replace(cost=c_rep)
+    with record_function("repro.contraction"):
+        S = choose_contraction_set(inst3,
+                                   matching_rounds=cfg.matching_rounds,
+                                   forest_rounds=cfg.forest_rounds,
+                                   switch_frac=cfg.switch_frac,
+                                   contract_frac=cfg.contract_frac)
+        res, csr2 = contract_csr(inst3, S)
+    state2 = SolverState(instance=res.instance, csr=csr2,
+                         mapping=res.mapping[state.mapping.long()])
+    return state2, lb, res
+
+
+def _solve_pd_sparse(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
+                     sweep=None, intersect=None):
+    """Sparse-path PD/PD+: ``build_csr`` runs once, before round 0; every
+    later round reads the CSR the previous round's contraction maintained.
+    Round 0 may separate 4/5-cycles and gives the solve's lower bound (the
+    only one valid on the original graph). The loop exits early when a
+    round contracts nothing — one host sync per round."""
+    N, R = inst.num_nodes, cfg.max_rounds
+    dev = inst.device
+    with45_first = cfg.always_cycles45 or plus or cfg.first_round_cycles45
+    with45_rest = cfg.always_cycles45 or plus
+
+    state = SolverState(
+        instance=inst,
+        csr=csr_from_instance(inst),
+        mapping=torch.arange(N, dtype=torch.int32, device=dev))
+    hist_lb = torch.full((R,), float("-inf"), dtype=torch.float32,
+                         device=dev)
+    hist_nc = torch.zeros((R,), dtype=torch.int32, device=dev)
+    hist_nk = torch.zeros((R,), dtype=torch.int32, device=dev)
+    lb0 = None
+    r = 0
+    while r < R:
+        state, lb, res = fused_pd_round_state(
+            state, cfg, with45_first if r == 0 else with45_rest, sweep,
+            intersect)
+        if r == 0:
+            lb0 = lb
+        hist_lb[r] = lb
+        hist_nc[r] = res.n_contracted.to(torch.int32)
+        hist_nk[r] = res.n_new.to(torch.int32)
+        r += 1
+        if int(res.n_contracted) == 0:
+            break
+    labels = state.mapping
+    return SolveResult(labels=labels, objective=inst.objective(labels),
+                       lower_bound=lb0.to(torch.float32),
+                       rounds=torch.tensor(r, dtype=torch.int32, device=dev),
+                       lb_history=hist_lb, n_contracted=hist_nc,
+                       n_clusters=hist_nk)
+
+
+def solve_device(inst: MulticutInstance, mode: str = "pd",
+                 cfg: SolverConfig = SolverConfig(),
+                 sweep=None, intersect=None, trace: bool = False):
+    """Solve on the instance's device: modes ``pd`` and ``pd+`` on the
+    sparse CSR path. What is not ported yet raises ``NotImplementedError``
+    naming its ROADMAP item."""
+    if cfg.graph_impl not in GRAPH_IMPLS:
+        raise ValueError(f"unknown graph_impl {cfg.graph_impl!r}; expected "
+                         f"one of {GRAPH_IMPLS}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    if mode in ("p", "d"):
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported yet (ROADMAP Queue 1 item 7)")
+    if trace:
+        raise NotImplementedError(
+            "trace=True is not ported yet (ROADMAP Queue 1 item 9)")
+    if cfg.state_shards:
+        raise NotImplementedError(
+            "state_shards is not ported yet (ROADMAP Queue 1 item 13)")
+    if cfg.separation_shards > 1:
+        raise NotImplementedError(
+            "separation_shards > 1 is not ported yet (ROADMAP Queue 1 "
+            "item 13)")
+    impl = resolve_graph_impl(cfg.graph_impl, inst.num_nodes,
+                              cfg.sparse_threshold)
+    if impl != "sparse":
+        raise NotImplementedError(
+            f"the dense data path is not ported yet (ROADMAP Queue 1 item "
+            f"7): graph_impl={cfg.graph_impl!r} resolves to dense for "
+            f"{inst.num_nodes} padded nodes (threshold "
+            f"{cfg.sparse_threshold}); pass graph_impl='sparse'")
+    return _solve_pd_sparse(inst, cfg, plus=(mode == "pd+"), sweep=sweep,
+                            intersect=intersect)

@@ -7,6 +7,11 @@ import pytest
 from repro.core.graph import MulticutInstance, make_instance, random_instance
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
+
+
 @pytest.fixture
 def tiny_instance():
     """8-node instance small enough for brute force."""

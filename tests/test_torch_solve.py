@@ -1,0 +1,137 @@
+"""The slice as a whole: ``repro_torch.api.solve(..., device="cpu")`` against
+``repro.api.solve(..., graph_impl="sparse")`` on a random, a grid and a
+cluster instance, with ``pd``, ``pd+`` and the ``pd-chunked`` preset; plus
+the API's routing rules and the import boundary of the port.
+
+All three instances share one padded shape, so the reference compiles
+once per (mode, config), not once per instance. Integer outputs (labels,
+rounds, per-round contraction and cluster counts) must be exact. The
+objective, lower bound and lower-bound history are float sums that torch
+and XLA reduce in different orders, a few float32 ulps apart (measured
+≤ 4e-7 relative): held at rtol 1e-5.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro import api as japi  # noqa: E402
+from repro.core import graph as jg  # noqa: E402
+from repro_torch import api as tapi  # noqa: E402
+from repro_torch.convert import instance_from_numpy, result_to_numpy  # noqa: E402,E501
+from repro_torch.core import graph as tg  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL = 1e-5
+PAD = dict(pad_nodes=576, pad_edges=3600)
+INSTANCES = {
+    "grid": lambda: jg.grid_instance(24, 24, seed=0, **PAD),
+    "random": lambda: jg.random_instance(300, 0.02, seed=1, **PAD),
+    "cluster": lambda: jg.cluster_instance(120, seed=2, **PAD),
+}
+RUNS = {"pd": dict(mode="pd"), "pd+": dict(mode="pd+"),
+        "pd-chunked": dict(preset="pd-chunked")}
+
+
+def _check(t, j):
+    for f in ("labels", "rounds", "n_contracted", "n_clusters"):
+        np.testing.assert_array_equal(getattr(t, f), np.asarray(getattr(j, f)),
+                                      err_msg=f)
+    for f in ("objective", "lower_bound", "lb_history"):
+        np.testing.assert_allclose(getattr(t, f), np.asarray(getattr(j, f)),
+                                   rtol=RTOL, err_msg=f)
+
+
+@pytest.mark.parametrize("run", sorted(RUNS))
+@pytest.mark.parametrize("name", sorted(INSTANCES))
+def test_solve_matches_reference(name, run):
+    ji = INSTANCES[name]()
+    ti = instance_from_numpy(*[np.asarray(x) for x in ji], device="cpu")
+    kw = RUNS[run]
+    jr = japi.solve(ji, graph_impl="sparse", **kw)
+    tr = result_to_numpy(tapi.solve(ti, graph_impl="sparse", device="cpu",
+                                    **kw))
+    _check(tr, jr)
+    assert int(tr.rounds) >= 2
+    assert float(tr.lower_bound) <= float(tr.objective) + 1e-4
+
+
+def test_backends_and_facade_agree_on_cpu():
+    """On CPU tensors the default kernel backend runs the plain versions,
+    so it equals backend="reference" exactly; the facade is a thin
+    wrapper; the default auto path resolves to sparse above 256 nodes."""
+    inst = tg.grid_instance(20, 20, seed=5, device="cpu")
+    a = result_to_numpy(tapi.solve(inst, device="cpu"))
+    b = result_to_numpy(tapi.solve(inst, backend="reference", device="cpu"))
+    c = result_to_numpy(tapi.Multicut.from_preset(
+        "paper-pd", device="cpu").solve(inst))
+    d = result_to_numpy(tapi.solve(inst, device="cpu",
+                                   tune_sparse_caps=True))
+    for x in (b, c, d):
+        for f, g in zip(a, x):
+            np.testing.assert_array_equal(f, g)
+    labels = a.labels
+    assert labels.shape == (400,) and labels.min() >= 0
+    assert len(np.unique(labels)) == int(a.n_clusters[int(a.rounds) - 1])
+
+
+def test_api_raises_for_unported_parts():
+    inst = tg.grid_instance(6, 6, seed=0, device="cpu")   # 36 nodes: dense
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tapi.solve(inst, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tapi.solve(inst, mode="p", graph_impl="sparse", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tapi.solve(inst, graph_impl="sparse", trace=True, device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tapi.solve(inst, backend="pallas", device="cpu")
+    assert set(tapi.list_presets()) >= {"paper-pd", "paper-pd+", "pd-opt",
+                                        "pd-sparse", "pd-chunked"}
+    assert tapi.SolverConfig().cache_key() == \
+        japi.SolverConfig().cache_key()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tapi.solve(inst, graph_impl="sparse")
+
+
+def test_port_imports_no_jax():
+    """Importing the port, and chip_smoke.py's own imports, load no jax and
+    no module of the JAX package."""
+    code = (
+        "import sys, runpy\n"
+        "import repro_torch.api, repro_torch.convert\n"
+        "import repro_torch.kernels.triangle_mp.ops\n"
+        "import repro_torch.kernels.cycle_intersect.ops\n"
+        "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(ROOT / "chip_smoke.py")],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin"},
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_rehearsal_on_cpu():
+    """``chip_smoke.py --rehearse`` drives every phase on the CPU at a tiny
+    size, then exits 3 with no result line; without a card and without
+    ``--rehearse`` it exits nonzero at once and prints nothing."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin",
+           "OMP_NUM_THREADS": "2"}
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rehearse"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 3, out.stderr[-2000:]
+    assert "phase 4" in out.stdout and '"ok"' not in out.stdout
+    assert "labels equal True" in out.stdout
+    if not torch.cuda.is_available():
+        bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=120)
+        assert bare.returncode != 0 and bare.stdout == ""
