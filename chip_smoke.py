@@ -6,11 +6,16 @@
 Phases, in order; any failure exits nonzero with no ``ok`` line:
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
-   builds both kernels from ``src/repro_torch/csrc`` (one nvcc each, in
-   parallel) and prints the build seconds.
+   builds the three kernels from ``src/repro_torch/csrc`` (one nvcc each,
+   in parallel) and prints the build seconds.
 2. Kernels against their plain PyTorch versions on the card, at the
    listed shapes: ``triangle_mp`` must be bitwise equal, ``cycle_intersect``
-   exactly equal. Times are CUDA-event medians.
+   exactly equal, ``flash_attention`` within atol 1e-2 + rtol 1e-2 of
+   ``chunked_attention`` (bf16 output: about one bf16 ulp) at gemma2-9b's
+   global and local layer shapes (S = 8192), phi3-mini's and granite-34b's
+   (S = 4096), a ragged S and S = 1. Times are CUDA-event medians; the
+   flash cases also time ``scaled_dot_product_attention`` with the
+   softcap (and window) off as a yardstick.
 3. The main path at full size: ``api.solve`` with the default preset on
    ``grid_instance(512, 1024)`` (524 288 nodes, 2 609 161 edges), through
    both hand kernels (their launch counters are zeroed just before and read
@@ -24,21 +29,42 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
 4. Card against CPU: ``grid_instance(96, 96, seed=1)`` solved on both.
    Labels must be equal and objective / lower bound within 1e-5 relative;
    if the labels differ, the first round where the runs part is printed.
+5. LM serving at full width: gemma2-9b (all 42 layers, random bf16
+   weights from a seed). The prefill step on one (1, 8192) prompt through
+   the flash kernel (counters zeroed just before, read just after: 42
+   launches, 21 local + 21 global), then through ``backend="reference"``:
+   logits finite, max |diff| / max |ref| <= 0.1 and greedy tokens agreeing
+   at >= 85 % of positions. Decode against forward (last-position
+   logits, same bound): 32 ``decode_step`` calls from an empty cache; and
+   one step at context 8000 of an 8192-slot cache (filled by one prefill
+   pass, so both the local layers' 4096 window and the global layers run
+   as in real serving), with the same step one slot late (a planted
+   fault) read under that bound. A float32 witness at 2 layers of full
+   width holds four such steps within 1e-4 of forward with the same
+   greedy tokens and must catch the planted fault. Then 16 timed and 4
+   profiled decode steps at that context, and the serving loop
+   (``launch/serve.py``) at full width with a few requests at contexts
+   of 24 tokens (a smoke, not a measure). Prints prefill seconds and
+   tokens/s, decode steps/s at context 8000, peak device memory, host
+   syncs per prefill and per decode step, and the device time by kernel
+   of a profiled prefill and of the profiled decode steps.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
 full record to ``chiprun_out/chip_smoke.json``.
 
 ``--rehearse`` runs the same phases on the CPU at small sizes (a 20×20
-main-path grid, a 17×17 card-vs-CPU grid), with each kernel wrapper running
-its plain version, to find wrong paths and shapes before a run on the card;
-it prints no result and exits 3.
+main-path grid, a 17×17 card-vs-CPU grid, attention at S <= 128, a
+2-layer gemma2 of width 64), with each kernel wrapper running its plain
+version, to find wrong paths and shapes before a run on the card; it
+prints no result and exits 3.
 
 The smoke drives one card: it keeps only the first of the visible devices.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -62,15 +88,25 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import graph  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cycle_intersect import ops as isect_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noqa: E402,E501
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref  # noqa: E402,E501
 from repro_torch.kernels.triangle_mp import ops as sweep_ops  # noqa: E402
 from repro_torch.kernels.triangle_mp.ref import mp_sweep_ref  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+FLASH_TOL = dict(atol=1e-2, rtol=1e-2)
+LOGITS_REL_TOL = 0.1            # max |diff| / max |ref| of LM logits
+GREEDY_AGREE_MIN = 0.85         # kernel vs plain prefill, random weights
+DECODE_F32_REL_TOL = 1e-4       # decode vs forward, float32, 2 layers
 SWEEP_FLOPS = 50                # per triangle: 6 steps x ~8 ops
 REPS = 20
 DEV = torch.device("cuda")      # --rehearse switches to the CPU
@@ -85,7 +121,35 @@ KERNELS = {
     "cycle_intersect": dict(
         source="src/repro_torch/csrc/cycle_intersect.cu",
         replaces="src/repro/kernels/cycle_intersect/kernel.py:98"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:122"),
 }
+# flash cases: (label, B, Hq, Hkv, S, D, window, softcap); all causal.
+# The first is the main path's head row (gemma2-9b's global layers).
+FLASH_CASES = {
+    "card": [("gemma2 global", 1, 16, 8, 8192, 256, None, 50.0),
+             ("gemma2 local", 1, 16, 8, 8192, 256, 4096, 50.0),
+             ("phi3-mini", 1, 32, 32, 4096, 96, None, None),
+             ("granite-34b", 1, 48, 1, 4096, 128, None, None),
+             ("ragged S", 2, 16, 8, 1000, 256, 300, 50.0),
+             ("S = 1", 1, 16, 8, 1, 256, None, 50.0)],
+    "rehearse": [("gemma2 global", 1, 16, 8, 128, 256, None, 50.0),
+                 ("gemma2 local", 1, 16, 8, 128, 256, 64, 50.0),
+                 ("phi3-mini", 1, 32, 32, 64, 96, None, None),
+                 ("granite-34b", 1, 48, 1, 64, 128, None, None),
+                 ("ragged S", 2, 16, 8, 37, 256, 9, 50.0),
+                 ("S = 1", 1, 16, 8, 1, 256, None, 50.0)],
+}
+# phase 5: (prefill S, short decode prompt, long decode context P0 (a
+# cache of S slots filled to P0 > the local window), timed decode steps
+# there, launch/serve.py flags)
+LM_RUN = {"card": (8192, 32, 8000, 16, ["--reduce", "1", "--batch", "4",
+                                        "--prompt-len", "16", "--gen", "8",
+                                        "--requests", "6"]),
+          "rehearse": (48, 12, 36, 4, ["--reduce", "16", "--batch", "2",
+                                       "--prompt-len", "6", "--gen", "3",
+                                       "--requests", "3"])}
 
 
 class SmokeFailure(RuntimeError):
@@ -203,8 +267,56 @@ def intersect_case(R: int, W: int, Wj: int, gen, ci=None) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def visible_pairs(S: int, window) -> int:
+    """(q, k) pairs a causal row set of length S sees, with a window."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_case(label, B, Hq, Hkv, S, D, window, softcap, gen) -> dict:
+    def rand(h, scale):
+        return (torch.randn(B, h, S, D, device=DEV, generator=gen)
+                * scale).to(torch.bfloat16)
+    q, k, v = rand(Hq, 2.0), rand(Hkv, 1.0), rand(Hkv, 1.0)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    n0 = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    want = chunked_attention(q, k, v, **kw)
+    sync()
+    check(flash_ops.launches == n0 + (DEV.type == "cuda"),
+          f"flash_attention {label}: no launch")
+    check(got.shape == q.shape and got.dtype == q.dtype
+          and bool(torch.isfinite(got).all()),
+          f"flash_attention {label}: bad output")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    bad = int((diff > FLASH_TOL["atol"]
+               + FLASH_TOL["rtol"] * want.float().abs()).sum())
+    check(bad == 0, f"flash_attention {label}: {bad} elements outside "
+          f"atol/rtol {FLASH_TOL} (max err {err})")
+    flops = 4 * D * visible_pairs(S, window) * B * Hq
+    bytes_moved = 2 * D * S * B * (2 * Hq + 2 * Hkv)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():      # softcap and window off: the nearest one call
+        sdpa(q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
+
+    return dict(label=label, shape=[B, Hq, Hkv, S, D], window=window,
+                softcap=softcap, max_abs_err=err,
+                kernel_ms=cuda_ms(lambda: flash_ops.flash_attention(
+                    q, k, v, **kw)),
+                plain_ms=cuda_ms(lambda: chunked_attention(q, k, v, **kw),
+                                 reps=5, warmup=1),
+                library_ms=cuda_ms(library),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(gen, small: bool) -> dict:
-    cases = {"triangle_mp": [], "cycle_intersect": []}
+    cases = {"triangle_mp": [], "cycle_intersect": [], "flash_attention": []}
     big = 65536 if not small else 512
     for T in ((1 << 20, 1_000_003) if not small else (4096, 4099)):
         cases["triangle_mp"].append(sweep_case(T, gen))
@@ -220,11 +332,16 @@ def phase_kernels(gen, small: bool) -> dict:
     empty = torch.full((512, 64), 136, device=DEV, dtype=torch.int32)
     cases["cycle_intersect"].append(intersect_case(512, 64, 64, gen,
                                                    ci=empty))
+    for c in FLASH_CASES["rehearse" if small else "card"]:
+        cases["flash_attention"].append(flash_case(*c, gen))
     for name, rows in cases.items():
         for c in rows:
-            log(f"  {name} {c['shape']}: kernel {c['kernel_ms']:.4f} ms, "
-                f"plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} "
-                f"ms, err {c['max_abs_err']}")
+            lib = "" if c["library_ms"] is None else \
+                f", library {c['library_ms']:.4f} ms"
+            log(f"  {name} {c.get('label', '')} {c['shape']}: kernel "
+                f"{c['kernel_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms"
+                f"{lib}, bound {c['bound_ms']:.5f} ms, err "
+                f"{c['max_abs_err']}")
     return cases
 
 
@@ -233,10 +350,15 @@ def phase_kernels(gen, small: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 def reset_counters():
-    sweep_ops.launches = 0
-    sweep_ops.shapes.clear()
-    isect_ops.launches = 0
-    isect_ops.shapes.clear()
+    for ops in (sweep_ops, isect_ops, flash_ops):
+        ops.launches = 0
+        ops.shapes.clear()
+
+
+def all_launches() -> dict:
+    return {"triangle_mp": sweep_ops.launches,
+            "cycle_intersect": isect_ops.launches,
+            "flash_attention": flash_ops.launches}
 
 
 def timed_solve(inst, **kw):
@@ -370,8 +492,9 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
     reset_counters()
     res, first_s = timed_solve(inst)                 # the main path
-    launches = {"triangle_mp": sweep_ops.launches,
-                "cycle_intersect": isect_ops.launches}
+    launches = all_launches()
+    check(launches.pop("flash_attention") == 0,
+          "the multicut solve launched the attention kernel")
     main_shapes = {"triangle_mp": dict(sweep_ops.shapes),
                    "cycle_intersect": dict(isect_ops.shapes)}
     peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
@@ -460,6 +583,292 @@ def phase_cpu(h: int, w: int) -> dict:
     return out
 
 
+def lm_config(rehearse: bool):
+    """gemma2-9b at full width and depth on the card; a 2-layer width-64
+    copy (window 16, so it masks at the rehearsal's S = 48) on the CPU."""
+    arch = get_arch("gemma2-9b")
+    if not rehearse:
+        return arch
+    return dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        head_dim=16, d_ff=128, vocab=256, local_window=16))
+
+
+def logits_diff(got, ref) -> dict:
+    """max |got - ref|, max |ref|, their ratio, and the share of positions
+    whose greedy token agrees."""
+    err = float((got - ref).abs_().max())
+    scale = float(ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    return dict(max_abs_err=err, max_abs_ref=scale, rel_err=err / scale,
+                greedy_agreement=agree)
+
+
+def logits_agree(got, ref, what: str) -> dict:
+    """Finite logits within LOGITS_REL_TOL · max |ref| of ``ref``."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    out = logits_diff(got, ref)
+    check(out["rel_err"] <= LOGITS_REL_TOL,
+          f"{what}: max |diff| {out['max_abs_err']} > {LOGITS_REL_TOL} x "
+          f"max |ref| {out['max_abs_ref']}")
+    return out
+
+
+def profile_device(fn) -> dict:
+    """``fn`` under torch.profiler: host wall, device busy time (the sum
+    of device-side events), the flash kernel's device time per launch,
+    and the kernels that take the most device time."""
+    if DEV.type != "cuda":
+        return {}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_kernel.get(e.key, (0, 0.0))
+            by_kernel[e.key] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_kernel.values())
+    n = sum(c for k, (c, _) in by_kernel.items() if "flash_fwd_kernel" in k)
+    us = sum(t for k, (_, t) in by_kernel.items() if "flash_fwd_kernel" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: kv[1][1],
+                 reverse=True)[:12]
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+                idle_share=1 - busy_us / 1e3 / (wall * 1e3),
+                device_events=sum(c for c, _ in by_kernel.values()),
+                flash_attention=dict(launches=n, device_ms_total=us / 1e3,
+                                     device_us_per_launch=us / n if n
+                                     else None),
+                top_device_kernels=[dict(name=k[:100], count=c,
+                                         device_ms=t / 1e3)
+                                    for k, (c, t) in top])
+
+
+def fill_cache(cfg, params, tokens, cache, backend):
+    """Write into ``cache`` what decoding ``tokens`` one at a time from
+    position 0 leaves there (each layer's roped keys and its values), in
+    one prefill pass with attention through ``backend``."""
+    B, P = tokens.shape
+    pos = torch.arange(P, dtype=torch.int32, device=DEV).expand(B, P)
+    x = params["embed"][tokens].to(cfg.dtype)
+    for i in range(cfg.n_layers):
+        lp = tfm.layer_params(params, i)
+        h = tfm.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        k, v = ((h @ lp[w].to(h.dtype)).view(B, P, cfg.n_kv_heads, cfg.hd)
+                .transpose(1, 2) for w in ("wk", "wv"))
+        cache["k"][i, :, :, :P] = tfm.rope(k, pos, cfg.rope_theta)
+        cache["v"][i, :, :, :P] = v
+        x = tfm.layer_fn(cfg, lp, x, pos, tfm.layer_window(cfg, i), backend)
+
+
+def f32_decode_witness(cfg, tokens, P0: int, S: int) -> dict:
+    """gemma2-9b's width in float32 at 2 layers (one local, one global):
+    four decode steps after a context of P0 > window tokens against the
+    forward logits at those positions (plain attention), within
+    DECODE_F32_REL_TOL and the same greedy tokens; then a planted fault
+    (the step one cache slot late, ``cache_len`` P0 + 1) must fail that
+    gate."""
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = tfm.init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
+                             DEV)
+    n = 4
+    hid = tfm.forward_hidden(cfg, params, tokens[:, :P0 + n],
+                             backend="reference")[:, P0:]
+    want = tfm.forward_logits_from_hidden(cfg, params, hid)
+    cache = tfm.init_kv_cache(cfg, 1, S, DEV)
+    fill_cache(cfg, params, tokens[:, :P0], cache, "reference")
+    bad = {k: c.clone() for k, c in cache.items()}
+    got = torch.stack([tfm.decode_step(cfg, params, tokens[:, P0 + t], cache,
+                                       P0 + t)[0] for t in range(n)], 1)
+    scale = float(want.abs().max())
+    out = dict(layers=2, context=P0, steps=n,
+               rel_err=float((got - want).abs().max()) / scale,
+               argmax_equal=bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1))))
+    late, _ = tfm.decode_step(cfg, params, tokens[:, P0], bad, P0 + 1)
+    out["planted_fault_rel_err"] = float((late - want[:, 0]).abs().max()) \
+        / scale
+    check(out["rel_err"] <= DECODE_F32_REL_TOL,
+          f"f32 decode vs forward: rel {out['rel_err']} > "
+          f"{DECODE_F32_REL_TOL}")
+    check(out["argmax_equal"], "f32 decode vs forward: greedy tokens differ")
+    check(out["planted_fault_rel_err"] > DECODE_F32_REL_TOL,
+          f"f32 decode gate misses a cache write one slot late: rel "
+          f"{out['planted_fault_rel_err']}")
+    return out
+
+
+def phase_lm(rehearse: bool) -> dict:
+    arch = lm_config(rehearse)
+    cfg = arch.cfg
+    S, P, P0, n_steps, serve_flags = LM_RUN["rehearse" if rehearse
+                                            else "card"]
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    sync()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, gen, DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    leaves = [t for k, t in params.items() if k != "layers"]
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       leaves + list(params["layers"].values()))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.params_count} params, "
+        f"{weight_bytes / 1e9:.2f} GB of weights, drawn in {init_s:.2f} s")
+    tokens = torch.randint(0, cfg.vocab, (1, S), device=DEV, generator=gen)
+    prefill = arch.step_fn(arch.shapes["prefill_32k"])
+    plain = arch.step_fn(arch.shapes["prefill_32k"], backend="reference")
+
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    logits = prefill(params, tokens)                 # the main path
+    sync()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    shapes = {str(k): n for k, n in flash_ops.shapes.items()}
+    peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
+    log(f"  prefill (1, {S}): {first_s:.3f} s (first call), launches "
+        f"{launches}, shapes {shapes}")
+    check(tuple(logits.shape) == (1, S, cfg.vocab)
+          and logits.dtype == torch.float32, "prefill: bad logits shape")
+    want = {(1, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd, w): cfg.n_layers // 2
+            for w in (cfg.local_window, None)}
+    if DEV.type == "cuda":
+        check(launches == {"triangle_mp": 0, "cycle_intersect": 0,
+                           "flash_attention": cfg.n_layers},
+              f"prefill launched {launches}, want {cfg.n_layers} flash")
+        check(dict(flash_ops.shapes) == want,
+              f"prefill gave the kernel {dict(flash_ops.shapes)}")
+    walls = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        prefill(params, tokens)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    sync()
+    t0 = time.perf_counter()
+    ref = plain(params, tokens)
+    sync()
+    plain_s = time.perf_counter() - t0
+    vs_plain = logits_agree(logits, ref, "prefill kernel vs plain")
+    check(vs_plain["greedy_agreement"] >= GREEDY_AGREE_MIN,
+          f"prefill: greedy agreement {vs_plain['greedy_agreement']} < "
+          f"{GREEDY_AGREE_MIN}")
+    at_p0 = logits[:, P0].clone()
+    del logits, ref
+    prof = profile_device(lambda: prefill(params, tokens))
+    prefill_syncs = count_syncs(lambda: prefill(params, tokens))
+
+    # decode against forward on a short prompt, decode_step's own writes
+    step = arch.step_fn(arch.shapes["decode_32k"])
+    last = prefill(params, tokens[:, :P])[:, -1]
+    cache = tfm.init_kv_cache(cfg, 1, P + 8, DEV)
+    for t in range(P):
+        dec, cache = step(params, cache, tokens[:, t], t)
+    vs_short = logits_agree(dec, last, "decode vs forward, short prompt")
+    vs_short["argmax_equal"] = bool(torch.equal(dec.argmax(-1),
+                                                last.argmax(-1)))
+    decode_syncs = count_syncs(lambda: step(params, cache, tokens[:, 0], P))
+
+    # decode at a long context: S cache slots filled to P0 > the local
+    # window, so the local layers' window masks; one step against the
+    # prefill's logits at P0, the same step one slot late (a planted
+    # fault) read under the same gate, then timed and profiled steps
+    cache = tfm.init_kv_cache(cfg, 1, S, DEV)
+    fill_cache(cfg, params, tokens[:, :P0], cache, "cuda")
+    bad = {k: c.clone() for k, c in cache.items()}
+    late, _ = step(params, bad, tokens[:, P0], P0 + 1)
+    fault = logits_diff(late, at_p0)
+    fault["caught_by_gate"] = fault["rel_err"] > LOGITS_REL_TOL
+    del bad, late
+    dec, cache = step(params, cache, tokens[:, P0], P0)
+    vs_long = logits_agree(dec, at_p0, "decode vs forward, long context")
+    vs_long["argmax_equal"] = bool(torch.equal(dec.argmax(-1),
+                                               at_p0.argmax(-1)))
+    sync()
+    t0 = time.perf_counter()
+    for t in range(P0 + 1, P0 + 1 + n_steps):
+        step(params, cache, tokens[:, t], t)
+    sync()
+    decode_s = time.perf_counter() - t0
+
+    def four_steps():
+        for t in range(P0 + 1 + n_steps, P0 + 5 + n_steps):
+            step(params, cache, tokens[:, t], t)
+    decode_prof = profile_device(four_steps)
+    del params, cache, dec, last, at_p0
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    witness = f32_decode_witness(cfg, tokens, P0, S)
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # launch/serve.py at full width, from its own flags
+    served = serve.main(["--arch", "gemma2-9b", "--device", str(DEV)]
+                        + serve_flags)
+    flags = dict(zip(serve_flags[::2], serve_flags[1::2]))
+    n_req, gen_len = int(flags["--requests"]), int(flags["--gen"])
+    vocab = serve._reduced_lm(get_arch("gemma2-9b").cfg,
+                              int(flags["--reduce"])).vocab
+    check(served["served"] == n_req and all(
+        len(toks) == gen_len + 1 and all(0 <= x < vocab for x in toks)
+        for _, toks in served["done"]), "launch/serve.py: bad requests")
+
+    out = dict(
+        config=cfg.name, n_layers=cfg.n_layers, params=cfg.params_count,
+        weight_bytes=weight_bytes, init_s=init_s, prefill_tokens=S,
+        prefill_first_s=first_s, prefill_s=walls,
+        prefill_s_median=statistics.median(walls),
+        prefill_tokens_per_s=S / statistics.median(walls),
+        plain_prefill_s=plain_s, launches=launches,
+        kernel_shapes=shapes, peak_bytes=peak, vs_plain=vs_plain,
+        decode_short_prompt=P, vs_forward_short=vs_short,
+        decode_context=P0, decode_cache_slots=S, vs_forward_long=vs_long,
+        planted_fault=fault, f32_witness=witness, decode_steps=n_steps,
+        decode_s=decode_s, decode_steps_per_s=n_steps / decode_s,
+        host_syncs=dict(prefill=dict(prefill_syncs),
+                        decode_step=dict(decode_syncs)), profile=prof,
+        decode_profile=decode_prof,
+        serve=dict(flags=serve_flags, served=served["served"],
+                   steps=served["steps"], seconds=served["seconds"],
+                   steps_per_s=served["steps"] / served["seconds"],
+                   slot_tokens_per_s=served["n_decoded"]
+                   / served["seconds"]))
+    log(f"  prefill {out['prefill_s_median']:.3f} s (median of 2), "
+        f"{out['prefill_tokens_per_s']:.0f} tokens/s; plain attention "
+        f"{plain_s:.3f} s; peak {peak / 2**30:.2f} GiB; kernel vs plain "
+        f"{vs_plain}")
+    log(f"  decode vs forward, {P}-token prompt: {vs_short}; at context "
+        f"{P0} of {S} slots: {vs_long}; one slot late (planted fault): "
+        f"{fault}; f32 witness: {witness}")
+    log(f"  decode at context {P0}: {out['decode_steps_per_s']:.2f} steps/s "
+        f"(batch 1, {n_steps} steps); host syncs {out['host_syncs']}")
+    log(f"  launch/serve.py: {served['served']} requests, {served['steps']} "
+        f"steps in {served['seconds']:.2f} s "
+        f"({out['serve']['steps_per_s']:.1f} steps/s, batch "
+        f"{flags['--batch']}, contexts <= 24: a smoke, not a measure)")
+    if prof:
+        log(f"  profiled prefill: device busy {prof['device_busy_ms']:.1f} "
+            f"of {prof['wall_ms']:.1f} ms (idle share "
+            f"{prof['idle_share']:.3f}); flash {prof['flash_attention']}; "
+            f"top {prof['top_device_kernels'][:6]}")
+        dp = decode_prof
+        log(f"  profiled decode at context {P0}, 4 steps: device busy "
+            f"{dp['device_busy_ms']:.1f} of {dp['wall_ms']:.1f} ms (idle "
+            f"share {dp['idle_share']:.3f}), {dp['device_events']} device "
+            f"events; top {dp['top_device_kernels'][:5]}")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -471,9 +880,27 @@ def main_path_cases(main: dict, gen) -> dict:
     return out
 
 
-def kernel_line(cases: dict, main_cases: dict, main: dict) -> dict:
+def kernel_line(cases: dict, main_cases: dict, main: dict,
+                lm: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
+        if name == "flash_attention":
+            head = cases[name][0]                   # gemma2 global layers
+            rows.append(dict(
+                name=name, route="cuda", source=meta["source"],
+                replaces=meta["replaces"],
+                launches=lm["launches"][name],
+                max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+                shape=head["shape"], ms=head["kernel_ms"],
+                kernel_ms=head["kernel_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"],
+                library_note="scaled_dot_product_attention, causal, softcap "
+                             "off (and window off)",
+                device_us_per_launch=lm.get("profile", {}).get(
+                    "flash_attention", {}).get("device_us_per_launch"),
+                cases=cases[name]))
+            continue
         shapes = main["main_shapes"][name]
         top = max(shapes, key=shapes.get)       # most launched shape
         key = [top, 3] if name == "triangle_mp" else \
@@ -535,11 +962,12 @@ def main(argv=None) -> int:
         log("phase 3: main path")
         main_rec = phase_main(*main_grid, api.SolverConfig().max_neg)
         main_cases = main_path_cases(main_rec, gen)
-        line = kernel_line(cases, main_cases, main_rec)
-        del main_rec["main_shapes"]
         record["main_path"] = main_rec
         log("phase 4: card against CPU")
         record["cpu_parity"] = phase_cpu(*cpu_grid)
+        log("phase 5: LM serving, gemma2-9b")
+        record["lm"] = phase_lm(args.rehearse)
+        line = kernel_line(cases, main_cases, main_rec, record["lm"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -547,6 +975,7 @@ def main(argv=None) -> int:
         print("chip_smoke: rehearsal finished on the CPU; no result",
               file=sys.stderr)
         return 3
+    del record["main_path"]["main_shapes"]
     record.update(line)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

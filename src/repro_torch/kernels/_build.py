@@ -28,6 +28,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 KERNELS = {
     "triangle_mp": ["-fmad=false"],
     "cycle_intersect": [],
+    "flash_attention": [],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

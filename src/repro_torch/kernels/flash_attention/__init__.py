@@ -1,0 +1,7 @@
+from repro_torch.kernels.flash_attention.chunked import chunked_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     decode_attention_ref)
+
+__all__ = ["attention_ref", "chunked_attention", "decode_attention_ref",
+           "flash_attention"]

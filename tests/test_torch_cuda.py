@@ -11,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.cycle_intersect import ops as isect_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noqa: E402,E501
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref  # noqa: E402,E501
 from repro_torch.kernels.triangle_mp import ops as sweep_ops  # noqa: E402
 from repro_torch.kernels.triangle_mp.ref import mp_sweep_ref  # noqa: E402
@@ -90,3 +92,95 @@ def test_wrappers_raise_on_unsupported_input():
     else:
         with pytest.raises(ValueError, match="ci on"):
             isect_ops.intersect_rows(cpu, meta.int())
+
+
+# (B, Hq, Hkv, S, D, causal, window, softcap): gemma2's global and local
+# layers (GQA 16/8, D 256, softcap 50), MHA at D 96, MQA at D 128, S = 1,
+# ragged S, non-causal with and without a window
+FLASH_CASES = [
+    (1, 16, 8, 1024, 256, True, None, 50.0),
+    (1, 16, 8, 1024, 256, True, 256, 50.0),
+    (2, 4, 4, 333, 96, True, None, None),
+    (1, 6, 1, 200, 128, True, None, None),
+    (1, 4, 2, 1, 128, True, None, None),
+    (1, 4, 2, 130, 256, False, None, None),
+    (1, 4, 2, 300, 128, False, 50, 20.0),
+    (1, 2, 1, 37, 96, True, 8, None),
+]
+# bf16 output: one bf16 ulp is 2^-7 relative (<= 0.0078 below 1, 0.0156 in
+# [2, 4)); the kernel rounds P to bf16 for its P V product where the plain
+# version keeps f32, which moves an output by well under one ulp on average
+FLASH_TOL = dict(atol=1e-2, rtol=1e-2)
+
+
+def _qkv(B, Hq, Hkv, S, D, seed, device):
+    rng = np.random.default_rng(seed)
+
+    def t(h, scale):
+        x = rng.normal(size=(B, h, S, D)).astype(np.float32) * scale
+        return torch.from_numpy(x).to(device, torch.bfloat16)
+    return t(Hq, 2.0), t(Hkv, 1.0), t(Hkv, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_against_chunked(cuda_device, case):
+    B, Hq, Hkv, S, D, causal, window, softcap = case
+    q, k, v = _qkv(B, Hq, Hkv, S, D, S + D, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == n0 + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = chunked_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_inputs(cuda_device):
+    """q, k, v as the transformer makes them, (B, S, H, D) transposed to
+    (B, H, S, D), give the same bits as contiguous copies."""
+    rng = np.random.default_rng(3)
+
+    def t(h):
+        x = rng.normal(size=(2, 100, h, 128)).astype(np.float32)
+        return torch.from_numpy(x).to(cuda_device, torch.bfloat16) \
+            .transpose(1, 2)
+    q, k, v = t(8), t(2), t(2)
+    a = flash_ops.flash_attention(q, k, v, window=33, softcap=30.0)
+    b = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=33, softcap=30.0)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
+    q, k, v = _qkv(1, 2, 1, 16, 64, 0, cuda_device)
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash_ops.flash_attention(q, k, v)
+    q, k, v = _qkv(1, 2, 1, 16, 128, 0, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_ops.flash_attention(q.float(), k.float(), v.float())
+
+
+def test_flash_wrapper_raises_without_a_kernel_route():
+    """Other devices, gradients, unknown backends and bad masks raise;
+    nothing falls back quietly."""
+    meta = torch.empty((1, 2, 8, 128), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_ops.flash_attention(meta, meta[:, :1], meta[:, :1])
+    q = torch.zeros((1, 2, 8, 16), requires_grad=True)
+    k = torch.zeros((1, 1, 8, 16))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        flash_ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        out = flash_ops.flash_attention(q, k, k)
+    assert out.shape == q.shape
+    with pytest.raises(ValueError, match="unknown backend"):
+        flash_ops.flash_attention(k, k, k, backend="pallas")
+    with pytest.raises(ValueError, match="window"):
+        flash_ops.flash_attention(k, k, k, window=0)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        kv2 = torch.zeros((1, 2, 8, 16))
+        flash_ops.flash_attention(torch.zeros((1, 3, 8, 16)), kv2, kv2)

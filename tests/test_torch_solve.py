@@ -107,6 +107,9 @@ def test_port_imports_no_jax():
         "import repro_torch.api, repro_torch.convert\n"
         "import repro_torch.kernels.triangle_mp.ops\n"
         "import repro_torch.kernels.cycle_intersect.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.models.transformer, repro_torch.configs\n"
+        "import repro_torch.launch.serve\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -129,6 +132,7 @@ def test_chip_smoke_rehearsal_on_cpu():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 3, out.stderr[-2000:]
     assert "phase 4" in out.stdout and '"ok"' not in out.stdout
+    assert "phase 5" in out.stdout
     assert "labels equal True" in out.stdout
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
