@@ -6,16 +6,20 @@
 Phases, in order; any failure exits nonzero with no ``ok`` line:
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
-   builds the three kernels from ``src/repro_torch/csrc`` (one nvcc each,
+   builds the four kernels from ``src/repro_torch/csrc`` (one nvcc each,
    in parallel) and prints the build seconds.
 2. Kernels against their plain PyTorch versions on the card, at the
    listed shapes: ``triangle_mp`` must be bitwise equal, ``cycle_intersect``
    exactly equal, ``flash_attention`` within atol 1e-2 + rtol 1e-2 of
    ``chunked_attention`` (bf16 output: about one bf16 ulp) at gemma2-9b's
    global and local layer shapes (S = 8192), phi3-mini's and granite-34b's
-   (S = 4096), a ragged S and S = 1. Times are CUDA-event medians; the
-   flash cases also time ``scaled_dot_product_attention`` with the
-   softcap (and window) off as a yardstick.
+   (S = 4096), a ragged S and S = 1; ``contract_matmul`` (KᵀAK − diag, two
+   launches) within max |Δ| / max |ref| <= 1e-5 of its plain version at
+   the five (N, M) shapes of ``tests/test_kernels.py``, the bench shape
+   (2048, 512) and (8192, 2048). Times are CUDA-event medians; the flash
+   cases also time ``scaled_dot_product_attention`` with the softcap (and
+   window) off as a yardstick, the contraction cases the same two
+   products through cuBLAS SGEMM (``torch.matmul``, TF32 off).
 3. The main path at full size: ``api.solve`` with the default preset on
    ``grid_instance(512, 1024)`` (524 288 nodes, 2 609 161 edges), through
    both hand kernels (their launch counters are zeroed just before and read
@@ -49,15 +53,32 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    syncs per prefill and per decode step, and the device time by kernel
    of a profiled prefill and of the profiled decode steps.
 
+6. The dense data path and the modes p, pd+ and d. (a) The instance and
+   config of ``examples/quickstart.py`` (200 nodes padded to 256: dense
+   under ``auto``) through ``api.solve`` in all four modes on the card,
+   with the kernels and with ``backend="reference"`` (equal), and on the
+   CPU (labels equal, objective and lower bound within 1e-5 relative).
+   (b) ``grid_instance(128, 128)`` (16 384 nodes, (N, N) matrices of
+   about 1 GB) solved with ``graph_impl="dense"`` and ``"sparse"`` in
+   modes pd and d: labels, rounds and histories equal, objective and
+   lower bound within 1e-4 relative; wall time (median of 3 after a
+   warm-up), host syncs and peak memory of each, and the device time by
+   phase of one profiled dense pd solve. (c) Lemma 4 on (b)'s round 0:
+   ``contract_matmul(adjacency_dense(inst'), mapping, n_new)`` against
+   ``adjacency_dense`` of the contracted instance within 1e-5 of its
+   largest entry, two launches, then the kernel against its plain
+   version and cuBLAS at that shape.
+
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
 full record to ``chiprun_out/chip_smoke.json``.
 
 ``--rehearse`` runs the same phases on the CPU at small sizes (a 20×20
 main-path grid, a 17×17 card-vs-CPU grid, attention at S <= 128, a
-2-layer gemma2 of width 64), with each kernel wrapper running its plain
-version, to find wrong paths and shapes before a run on the card; it
-prints no result and exits 3.
+2-layer gemma2 of width 64, contraction cases up to (513, 100), a 20×20
+dense-path grid), with each kernel wrapper running its plain version, to
+find wrong paths and shapes before a run on the card; it prints no result
+and exits 3.
 
 The smoke drives one card: it keeps only the first of the visible devices.
 """
@@ -89,8 +110,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import graph  # noqa: E402
+from repro_torch.core import contraction, graph, solver  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.contract_matmul import ops as cm_ops  # noqa: E402
+from repro_torch.kernels.contract_matmul.ref import (  # noqa: E402
+    contract_matmul_ref, full_fp32, one_hot,
+)
 from repro_torch.kernels.cycle_intersect import ops as isect_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noqa: E402,E501
@@ -107,11 +132,23 @@ FLASH_TOL = dict(atol=1e-2, rtol=1e-2)
 LOGITS_REL_TOL = 0.1            # max |diff| / max |ref| of LM logits
 GREEDY_AGREE_MIN = 0.85         # kernel vs plain prefill, random weights
 DECODE_F32_REL_TOL = 1e-4       # decode vs forward, float32, 2 layers
+# contract_matmul vs plain, max |diff| / max |ref|: float32 summed in
+# another order; a TF32 product would sit near 1e-4 and fail it
+CONTRACT_REL_TOL = 1e-5
+DENSE_REL_TOL = 1e-4            # dense vs sparse objective / lower bound
+CPU_REL_TOL = 1e-5              # card vs CPU objective / lower bound
 SWEEP_FLOPS = 50                # per triangle: 6 steps x ~8 ops
 REPS = 20
 DEV = torch.device("cuda")      # --rehearse switches to the CPU
+CARD_NAME = "rehearsal on the CPU"  # nvidia-smi's name and power limit
 GRIDS = {"card": ((512, 1024), (96, 96)),    # (main path, card vs CPU)
          "rehearse": ((20, 20), (17, 17))}
+# phase 2 contraction cases (N old nodes, M clusters) and phase 6's grid
+CONTRACT_CASES = {
+    "card": [(8, 3), (64, 17), (256, 256), (300, 77), (513, 100),
+             (2048, 512), (8192, 2048)],
+    "rehearse": [(8, 3), (64, 17), (256, 256), (300, 77), (513, 100)]}
+DENSE_GRID = {"card": (128, 128), "rehearse": (20, 20)}
 PORT = str(ROOT / "src" / "repro_torch")
 
 KERNELS = {
@@ -124,6 +161,9 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:122"),
+    "contract_matmul": dict(
+        source="src/repro_torch/csrc/contract_matmul.cu",
+        replaces="src/repro/kernels/contract_matmul/kernel.py:58"),
 }
 # flash cases: (label, B, Hq, Hkv, S, D, window, softcap); all causal.
 # The first is the main path's head row (gemma2-9b's global layers).
@@ -315,8 +355,60 @@ def flash_case(label, B, Hq, Hkv, S, D, window, softcap, gen) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def contract_case(N: int, M: int, gen, A=None, f=None, label=None) -> dict:
+    """``contract_matmul`` (two launches) against its plain version, on
+    random symmetric A and a random mapping unless given; times the
+    wrapper, its two products alone on a prebuilt K, the plain version and
+    the same two products through cuBLAS (TF32 off)."""
+    if A is None:
+        A = torch.randn(N, N, device=DEV, generator=gen)
+        A = (A + A.T) / 2
+        f = torch.randint(0, M, (N,), device=DEV, generator=gen,
+                          dtype=torch.int32)
+    n0 = cm_ops.launches
+    got = cm_ops.contract_matmul(A, f, M)
+    want = contract_matmul_ref(A, f, M)
+    sync()
+    check(cm_ops.launches == n0 + 2 * (DEV.type == "cuda"),
+          f"contract_matmul {N, M}: not two launches")
+    check(got.shape == (M, M) and bool(torch.isfinite(got).all()),
+          f"contract_matmul {N, M}: bad output")
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    check(rel <= CONTRACT_REL_TOL, f"contract_matmul {N, M}: max |diff| / "
+          f"max |ref| {rel} > {CONTRACT_REL_TOL}")
+    check(not bool(got.diagonal().any()),
+          f"contract_matmul {N, M}: diagonal not dropped")
+    del got, want
+    K = one_hot(f, M)
+    ops = 2 * N * N * M + 2 * M * N * M
+    bytes_moved = 4 * N * N + 4 * N + 4 * M * M
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    reps, warm = (5, 1) if ops > 1e12 else (REPS, 3)
+
+    def products():
+        cm_ops.matmul(K.T, cm_ops.matmul(A, K), drop_diag=True)
+
+    def library():      # the same two products through cuBLAS SGEMM
+        with full_fp32():
+            torch.matmul(K.T, torch.matmul(A, K))
+
+    kernel_ms = cuda_ms(lambda: cm_ops.contract_matmul(A, f, M), reps, warm)
+    return dict(label=label, shape=[N, M], max_abs_err=err, rel_err=rel,
+                kernel_ms=kernel_ms, products_ms=cuda_ms(products, reps,
+                                                         warm),
+                plain_ms=cuda_ms(lambda: contract_matmul_ref(A, f, M), reps,
+                                 warm),
+                library_ms=cuda_ms(library, reps, warm),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                tflop_per_s=ops / kernel_ms / 1e9)
+
+
 def phase_kernels(gen, small: bool) -> dict:
-    cases = {"triangle_mp": [], "cycle_intersect": [], "flash_attention": []}
+    cases = {"triangle_mp": [], "cycle_intersect": [], "flash_attention": [],
+             "contract_matmul": []}
     big = 65536 if not small else 512
     for T in ((1 << 20, 1_000_003) if not small else (4096, 4099)):
         cases["triangle_mp"].append(sweep_case(T, gen))
@@ -334,15 +426,21 @@ def phase_kernels(gen, small: bool) -> dict:
                                                    ci=empty))
     for c in FLASH_CASES["rehearse" if small else "card"]:
         cases["flash_attention"].append(flash_case(*c, gen))
+    for N, M in CONTRACT_CASES["rehearse" if small else "card"]:
+        cases["contract_matmul"].append(contract_case(N, M, gen))
     for name, rows in cases.items():
         for c in rows:
-            lib = "" if c["library_ms"] is None else \
-                f", library {c['library_ms']:.4f} ms"
-            log(f"  {name} {c.get('label', '')} {c['shape']}: kernel "
-                f"{c['kernel_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms"
-                f"{lib}, bound {c['bound_ms']:.5f} ms, err "
-                f"{c['max_abs_err']}")
+            log_case(name, c)
     return cases
+
+
+def log_case(name: str, c: dict):
+    lib = "" if c["library_ms"] is None else \
+        f", library {c['library_ms']:.4f} ms"
+    log(f"  {name} {c.get('label') or ''} {c['shape']}: kernel "
+        f"{c['kernel_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms"
+        f"{lib}, bound {c['bound_ms']:.5f} ms, err "
+        f"{c['max_abs_err']} [{CARD_NAME}]")
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +448,7 @@ def phase_kernels(gen, small: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 def reset_counters():
-    for ops in (sweep_ops, isect_ops, flash_ops):
+    for ops in (sweep_ops, isect_ops, flash_ops, cm_ops):
         ops.launches = 0
         ops.shapes.clear()
 
@@ -358,7 +456,8 @@ def reset_counters():
 def all_launches() -> dict:
     return {"triangle_mp": sweep_ops.launches,
             "cycle_intersect": isect_ops.launches,
-            "flash_attention": flash_ops.launches}
+            "flash_attention": flash_ops.launches,
+            "contract_matmul": cm_ops.launches}
 
 
 def timed_solve(inst, **kw):
@@ -434,20 +533,24 @@ def count_syncs(fn) -> Counter:
     return sites
 
 
-def profile_solve(inst) -> dict:
-    """One main-path solve under torch.profiler: device busy time (the sum
-    of the device-side kernel and copy events), each round phase's host and
-    device milliseconds (the solver's ``repro.*`` ranges, summed over
-    rounds), device time per launch of each hand kernel, and the kernels
-    that take the most device time."""
+def profile_solve(inst, **kw) -> dict:
+    """One solve (the main path's unless ``kw`` says otherwise) under
+    torch.profiler: device busy time (the sum of the device-side kernel and
+    copy events), each round phase's host and device milliseconds (the
+    solver's ``repro.*`` ranges, summed over rounds), device time per
+    launch of each hand kernel, and the kernels that take the most device
+    time."""
     if DEV.type != "cuda":
         return {}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        api.solve(inst, device=DEV)
         sync()
+        t0 = time.perf_counter()
+        api.solve(inst, device=DEV, **kw)
+        sync()
+        wall = time.perf_counter() - t0
     phases = {}
     by_kernel = {}
     for e in prof.events():
@@ -470,16 +573,23 @@ def profile_solve(inst) -> dict:
                           device_us_per_launch=us / n if n else None)
     top = sorted(by_kernel.items(), key=lambda kv: kv[1][1],
                  reverse=True)[:12]
-    return dict(device_busy_ms=busy_us / 1e3, phases=phases, kernels=kern,
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+                phases=phases, kernels=kern,
                 device_launches=sum(c for c, _ in by_kernel.values()),
                 top_device_kernels=[dict(name=k[:100], count=c,
                                          device_ms=us / 1e3)
                                     for k, (c, us) in top])
 
 
+def grid_edges(h: int, w: int) -> int:
+    """Edges of ``grid_instance(h, w)``: 4-neighbours and the long-range
+    (0, 4), (4, 0), (3, 3) offsets."""
+    return (h * (w - 1) + (h - 1) * w + h * (w - 4) + (h - 4) * w
+            + (h - 3) * (w - 3))
+
+
 def phase_main(h: int, w: int, max_neg: int) -> dict:
-    E = (h * (w - 1) + (h - 1) * w + h * (w - 4) + (h - 4) * w
-         + (h - 3) * (w - 3))
+    E = grid_edges(h, w)
     t0 = time.perf_counter()
     inst = graph.grid_instance(h, w, seed=0, pad_edges=E + 4 * max_neg,
                                device=DEV)
@@ -493,8 +603,9 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
     reset_counters()
     res, first_s = timed_solve(inst)                 # the main path
     launches = all_launches()
-    check(launches.pop("flash_attention") == 0,
-          "the multicut solve launched the attention kernel")
+    check(launches.pop("flash_attention") == 0
+          and launches.pop("contract_matmul") == 0,
+          "the sparse solve launched the attention or contraction kernel")
     main_shapes = {"triangle_mp": dict(sweep_ops.shapes),
                    "cycle_intersect": dict(isect_ops.shapes)}
     peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
@@ -743,7 +854,8 @@ def phase_lm(rehearse: bool) -> dict:
             for w in (cfg.local_window, None)}
     if DEV.type == "cuda":
         check(launches == {"triangle_mp": 0, "cycle_intersect": 0,
-                           "flash_attention": cfg.n_layers},
+                           "flash_attention": cfg.n_layers,
+                           "contract_matmul": 0},
               f"prefill launched {launches}, want {cfg.n_layers} flash")
         check(dict(flash_ops.shapes) == want,
               f"prefill gave the kernel {dict(flash_ops.shapes)}")
@@ -869,6 +981,184 @@ def phase_lm(rehearse: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the dense data path and the other solver modes
+# ---------------------------------------------------------------------------
+
+# examples/quickstart.py's instance and config
+QUICKSTART = dict(n=200, p=0.08, seed=0, pad_edges=4096, pad_nodes=256)
+QUICKSTART_CFG = dict(max_neg=1024, max_tri_per_edge=8, mp_iters=10)
+INTS = ("labels", "rounds", "n_contracted", "n_clusters")
+
+
+def rel_close(a, b, tol: float) -> bool:
+    """|a - b| <= tol · max(1, |b|); infinities must be equal."""
+    a, b = float(a), float(b)
+    if np.isinf(a) or np.isinf(b):
+        return a == b
+    return abs(a - b) <= tol * max(1.0, abs(b))
+
+
+def phase_quickstart() -> dict:
+    """(a) quickstart's instance (dense under auto) in all four modes: the
+    kernel backend equals the plain one on the card, and the card equals
+    the CPU."""
+    cfg = api.SolverConfig(**QUICKSTART_CFG)
+    out = {}
+    for mode in api.MODES:
+        inst = graph.random_instance(**QUICKSTART, device=DEV)
+        reset_counters()
+        kern = host(api.solve(inst, mode=mode, config=cfg, device=DEV))
+        launches = all_launches()
+        ref = host(api.solve(inst, mode=mode, config=cfg,
+                             backend="reference", device=DEV))
+        diff = same_result(kern, ref)
+        check(not diff, f"quickstart {mode}: kernel backend != reference "
+              f"in {diff}")
+        cpu = host(api.solve(graph.random_instance(**QUICKSTART,
+                                                   device="cpu"),
+                             mode=mode, config=cfg, device="cpu"))
+        ints = [f for f in INTS if not np.array_equal(kern[f], cpu[f])]
+        check(not ints, f"quickstart {mode}: card != CPU in {ints}")
+        for f in ("objective", "lower_bound"):
+            check(rel_close(kern[f], cpu[f], CPU_REL_TOL),
+                  f"quickstart {mode}: card {f} {kern[f]} vs CPU {cpu[f]}")
+        if DEV.type == "cuda":
+            want = 0 if mode == "p" else 1
+            check(launches["triangle_mp"] >= want
+                  and launches["cycle_intersect"] == 0,
+                  f"quickstart {mode} (dense): launched {launches}")
+        out[mode] = dict(rounds=int(kern["rounds"]),
+                         objective=float(kern["objective"]),
+                         lower_bound=float(kern["lower_bound"]),
+                         cpu_objective=float(cpu["objective"]),
+                         cpu_lower_bound=float(cpu["lower_bound"]),
+                         launches=launches)
+        log(f"  quickstart {mode}: rounds {out[mode]['rounds']}, objective "
+            f"{out[mode]['objective']}, lower bound "
+            f"{out[mode]['lower_bound']} (CPU {out[mode]['cpu_objective']}, "
+            f"{out[mode]['cpu_lower_bound']}), launches {launches}")
+    return out
+
+
+def dense_run(inst, mode: str, impl: str) -> tuple[dict, dict]:
+    """One (mode, data path) on ``inst``: counters zeroed just before the
+    first solve and read just after; then wall time (median of 3), host
+    syncs and peak memory."""
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    res, first_s = timed_solve(inst, mode=mode, graph_impl=impl)
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
+    walls = [timed_solve(inst, mode=mode, graph_impl=impl)[1]
+             for _ in range(3)]
+    sites = count_syncs(lambda: api.solve(inst, mode=mode, graph_impl=impl,
+                                          device=DEV))
+    r = host(res)
+    rec = dict(rounds=int(r["rounds"]), objective=float(r["objective"]),
+               lower_bound=float(r["lower_bound"]),
+               lb_history=r["lb_history"].tolist(),
+               first_call_s=first_s, wall_s=walls,
+               wall_s_median=statistics.median(walls),
+               host_syncs=sum(sites.values()),
+               host_sync_sites=dict(sites.most_common()), peak_bytes=peak,
+               launches=launches)
+    log(f"  {mode} {impl}: wall {rec['wall_s_median']:.4f} s (median of "
+        f"3; first {first_s:.3f} s), rounds {rec['rounds']}, objective "
+        f"{rec['objective']}, lower bound {rec['lower_bound']}, host syncs "
+        f"{rec['host_syncs']}, peak {peak} B, launches {launches} "
+        f"[{CARD_NAME}]")
+    return r, rec
+
+
+def lemma4_round0(inst, gen) -> dict:
+    """(c) Lemma 4 on the dense pd solve's round 0: the contraction kernel
+    on the dense adjacency of the round's reparametrised, chorded instance
+    against the dense adjacency of the contracted instance; then the
+    kernel against its plain version and cuBLAS at that shape."""
+    cfg = api.SolverConfig(graph_impl="dense")
+    inst2, c_rep, _, _ = solver._dual_round_core(
+        inst, cfg, cfg.first_round_cycles45, solver.resolve_sweep("cuda"),
+        solver.resolve_intersect("cuda"))
+    inst3 = inst2._replace(cost=c_rep)
+    res = solver._primal_round_core(inst3, cfg)
+    n_new = int(res.n_new)
+    A = contraction.adjacency_dense(inst3)
+    want = contraction.adjacency_dense(res.instance)[:n_new, :n_new].clone()
+    reset_counters()
+    got = cm_ops.contract_matmul(A, res.mapping, n_new)
+    sync()
+    launches = all_launches()["contract_matmul"]
+    check(DEV.type != "cuda" or launches == 2,
+          f"lemma 4: {launches} contract_matmul launches, want 2")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= CONTRACT_REL_TOL * scale, f"lemma 4: max |KᵀAK - A'| "
+          f"{err} > {CONTRACT_REL_TOL} x {scale}")
+    del got, want
+    case = contract_case(inst.num_nodes, n_new, gen, A=A, f=res.mapping,
+                         label="lemma 4, round 0")
+    # device time of each of the two launches, by CUDA events (a
+    # torch.profiler window here recorded no device events on the card)
+    K = one_hot(res.mapping, n_new)
+    B = cm_ops.matmul(A, K)
+    launch_ms = [cuda_ms(lambda: cm_ops.matmul(A, K), 3, 1),
+                 cuda_ms(lambda: cm_ops.matmul(K.T, B, drop_diag=True), 3,
+                         1)]
+    del K, B
+    log(f"  lemma 4 on round 0: {inst.num_nodes} -> {n_new} nodes, max "
+        f"|KᵀAK - A'| {err} of max |A'| {scale}, launches {launches}; "
+        f"device ms per launch {launch_ms}")
+    log_case("contract_matmul", case)
+    return dict(n_old=inst.num_nodes, n_new=n_new, max_abs_err=err,
+                max_abs_ref=scale, launches=launches, case=case,
+                launch_ms=launch_ms)
+
+
+def phase_dense(h: int, w: int, max_neg: int, gen) -> dict:
+    out = {"quickstart": phase_quickstart()}
+    E = grid_edges(h, w)
+    inst = graph.grid_instance(h, w, seed=0, pad_edges=E + 4 * max_neg,
+                               device=DEV)
+    sync()
+    log(f"  instance {h}x{w}: {inst.num_nodes} nodes, {E} edges "
+        f"(+{inst.num_edges - E} chord slots)")
+    runs = {}
+    for mode in ("pd", "d"):
+        rd, dense = dense_run(inst, mode, "dense")
+        rs, sparse = dense_run(inst, mode, "sparse")
+        ints = [f for f in INTS if not np.array_equal(rd[f], rs[f])]
+        check(not ints, f"{mode}: dense != sparse in {ints}")
+        for f in ("objective", "lower_bound"):
+            check(rel_close(rd[f], rs[f], DENSE_REL_TOL),
+                  f"{mode}: dense {f} {rd[f]} vs sparse {rs[f]}")
+        check(all(rel_close(a, b, DENSE_REL_TOL) for a, b in
+                  zip(rd["lb_history"], rs["lb_history"])),
+              f"{mode}: dense and sparse lower-bound histories differ")
+        if mode == "pd":
+            check_solution(inst, rd, "dense pd")
+        if DEV.type == "cuda":
+            check(dense["launches"]["triangle_mp"] > 0
+                  and dense["launches"]["cycle_intersect"] == 0,
+                  f"dense {mode}: launched {dense['launches']}")
+            check(sparse["launches"]["triangle_mp"] > 0
+                  and sparse["launches"]["cycle_intersect"] > 0,
+                  f"sparse {mode}: launched {sparse['launches']}")
+        runs[mode] = dict(dense=dense, sparse=sparse)
+    prof = profile_solve(inst, mode="pd", graph_impl="dense")
+    if prof:
+        busy = prof["device_busy_ms"]
+        log(f"  profiled dense pd solve: device busy {busy:.1f} of "
+            f"{prof['wall_ms']:.1f} ms (idle share "
+            f"{1 - busy / prof['wall_ms']:.3f}); phases {prof['phases']}; "
+            f"kernels {prof['kernels']} [{CARD_NAME}]")
+    out.update(instance=dict(h=h, w=w, nodes=inst.num_nodes, edges=E,
+                             pad_edges=inst.num_edges),
+               runs=runs, profile=prof, lemma4=lemma4_round0(inst, gen))
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -881,9 +1171,27 @@ def main_path_cases(main: dict, gen) -> dict:
 
 
 def kernel_line(cases: dict, main_cases: dict, main: dict,
-                lm: dict) -> dict:
+                lm: dict, dense: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
+        if name == "contract_matmul":
+            l4 = dense["lemma4"]
+            head = l4["case"]               # the shape phase 6 (c) gave it
+            every = cases[name] + [head]
+            rows.append(dict(
+                name=name, route="cuda", source=meta["source"],
+                replaces=meta["replaces"], launches=l4["launches"],
+                max_abs_err=max(c["max_abs_err"] for c in every),
+                shape=head["shape"], ms=head["kernel_ms"],
+                kernel_ms=head["kernel_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"],
+                library_note="the same two products through cuBLAS SGEMM "
+                             "(torch.matmul, TF32 off), K prebuilt",
+                device_us_per_launch=1e3 * statistics.mean(
+                    l4["launch_ms"]),
+                cases=every))
+            continue
         if name == "flash_attention":
             head = cases[name][0]                   # gemma2 global layers
             rows.append(dict(
@@ -943,7 +1251,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {torch.cuda.device_count()} cards visible; "
               f"this script drives one", file=sys.stderr)
         return 2
+    global CARD_NAME
     card = nvidia_smi() if DEV.type == "cuda" else "rehearsal on the CPU"
+    CARD_NAME = card
     record = dict(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, device=str(DEV))
     try:
@@ -967,7 +1277,12 @@ def main(argv=None) -> int:
         record["cpu_parity"] = phase_cpu(*cpu_grid)
         log("phase 5: LM serving, gemma2-9b")
         record["lm"] = phase_lm(args.rehearse)
-        line = kernel_line(cases, main_cases, main_rec, record["lm"])
+        log("phase 6: dense path and modes p, pd, pd+, d")
+        record["dense"] = phase_dense(
+            *DENSE_GRID["rehearse" if args.rehearse else "card"],
+            api.SolverConfig().max_neg, gen)
+        line = kernel_line(cases, main_cases, main_rec, record["lm"],
+                           record["dense"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -18,14 +18,17 @@ another device, and raise when no card is present. Tests pass
 package's default backend is ``"reference"`` (plain jnp) and its Pallas
 kernels are opt-in (``backend="pallas"``). Here the default is ``"cuda"``:
 the hand-written ``triangle_mp`` and ``cycle_intersect`` kernels, because
-the main path must run them. On CPU tensors their wrappers run the plain
+the solve must run them. On CPU tensors their wrappers run the plain
 PyTorch versions. ``backend="reference"`` runs the plain versions on any
 device; it exists so a run on the card can hold the kernels' solve against
 the plain one.
 
-Ported so far: modes ``pd`` and ``pd+`` on the sparse CSR path. Other
-modes, the dense path, traces, batches and the executable cache raise
-``NotImplementedError`` naming their ROADMAP item.
+Ported so far: modes ``p``, ``pd``, ``pd+`` and ``d`` on both separation
+data paths (``graph_impl="dense"``, ``"sparse"``, and ``"auto"``, which
+picks dense up to ``sparse_threshold`` padded nodes). Traces
+(``trace=True``), ``state_shards`` and ``separation_shards > 1`` raise
+``NotImplementedError`` naming their ROADMAP item; batches and the
+executable cache are not ported yet (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 

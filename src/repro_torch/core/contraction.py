@@ -11,7 +11,8 @@ Port of the replicated half of ``repro.core.contraction``:
   to the next round.
 
 Integer min/max scatters are order-free, so they use ``scatter_reduce_``.
-The one float reduction (merged edge costs) runs in a fixed order.
+The one float reduction (merged edge costs) runs in a fixed order, the
+same on every device.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.core.graph import CsrGraph, MulticutInstance, \
     csr_lookup_edge, lexsort
-from repro_torch.sparse.segment_ops import segment_argmax
+from repro_torch.kernels.contract_matmul.ref import contract_matmul_ref
+from repro_torch.sparse.segment_ops import segment_argmax, sequential_sums
 
 # connected_components tests for convergence every CC_CHECK_EVERY steps: a
 # step after convergence is a no-op (the min-scatter and the pointer jumps
@@ -184,20 +186,27 @@ class ContractionResult(NamedTuple):
 
 def _fixed_order_run_sum(values, seg, is_entry, num_segments: int):
     """Sum ``values`` of the entries with ``is_entry`` into ``seg`` in
-    array order, where ``seg`` is nondecreasing over those entries. The
-    other entries hold 0.0 and are folded into the run they follow (adding
-    0.0 leaves a sum unchanged), so the segments are contiguous and one
-    ``segment_reduce`` sums each in order — a fixed order with no sort and
-    no atomics, equal on the CPU to the reference's sequential segment_sum.
-    """
-    key = torch.where(is_entry, seg, torch.full_like(seg, -1))
-    run_seg = torch.cummax(key, dim=0).values.long() + 1    # 0 = lead-in
+    array order, where ``seg`` is nondecreasing over those entries: the
+    entries are compacted by a prefix sum (each segment then contiguous)
+    and each segment is added one entry at a time from 0.0 — a fixed order
+    with no sort and no atomics, the same on the CPU and the card, and
+    equal to the reference's sequential segment_sum. One host sync (the
+    longest segment)."""
+    n = values.shape[0]
+    dest = torch.where(is_entry, torch.cumsum(is_entry.to(torch.int64), 0)
+                       - 1, torch.full_like(seg, n, dtype=torch.int64))
+    data = torch.zeros(n + 1, dtype=values.dtype, device=values.device) \
+        .scatter_(0, dest, values)[:n]
     lengths = torch.zeros(num_segments + 1, dtype=torch.int64,
                           device=values.device)
-    lengths.scatter_add_(0, run_seg, torch.ones_like(run_seg))
-    data = torch.where(is_entry, values, torch.zeros_like(values))
-    return torch.segment_reduce(data, "sum", lengths=lengths,
-                                unsafe=True)[1:]
+    lengths.scatter_add_(0, torch.where(is_entry, seg.long(),
+                                        torch.full_like(seg.long(),
+                                                        num_segments)),
+                         torch.ones_like(dest))
+    lengths = lengths[:num_segments]
+    starts = torch.cumsum(lengths, 0) - lengths
+    max_len = int(lengths.max()) if num_segments else 0
+    return sequential_sums(data, starts, lengths, max_len)
 
 
 def _contract_core(inst: MulticutInstance, S: torch.Tensor):
@@ -300,3 +309,30 @@ def contract_csr(inst: MulticutInstance, S: torch.Tensor):
     :class:`CsrGraph`, maintained from the contraction's own sort (equal
     to a fresh ``build_csr``). The solver carries it to the next round."""
     return _contract_core(inst, S)
+
+
+# ---------------------------------------------------------------------------
+# Dense oracles (Lemma 4)
+# ---------------------------------------------------------------------------
+
+def adjacency_dense(inst: MulticutInstance) -> torch.Tensor:
+    """Dense symmetric adjacency (Definition 2) — small-N / test path.
+
+    Parallel edges add into one cell through ``index_put_(accumulate=True)``;
+    on CUDA that sum runs in no fixed order, so its float outputs compare
+    within a tolerance, not bitwise."""
+    N = inst.num_nodes
+    A = torch.zeros((N, N), dtype=inst.cost.dtype, device=inst.cost.device)
+    c = torch.where(inst.edge_valid, inst.cost, torch.zeros_like(inst.cost))
+    u, v = inst.u.long(), inst.v.long()
+    A.index_put_((u, v), c, accumulate=True)
+    A.index_put_((v, u), c, accumulate=True)
+    return A
+
+
+def contract_dense(A: torch.Tensor, f: torch.Tensor,
+                   n_new: int) -> torch.Tensor:
+    """Lemma 4(a): A' = KᵀAK − diag(KᵀAK) with K the one-hot contraction
+    matrix, in plain torch (float32, TF32 off). Dense oracle for the
+    ``contract_matmul`` kernel."""
+    return contract_matmul_ref(A, f, n_new, drop_diag=True)

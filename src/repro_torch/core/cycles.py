@@ -1,18 +1,21 @@
-"""Dual: conflicted-cycle separation, sparse CSR path (RAMA §3.2.2, Alg. 5).
+"""Dual: conflicted-cycle separation (RAMA §3.2.2, Alg. 5).
 
-Port of the sparse half of ``repro.core.cycles``. A conflicted cycle holds
-exactly one repulsive edge. For each of the ``max_neg`` most repulsive
-edges, common attractive neighbours come from sorted-row intersection of
-CSR row windows (the ``cycle_intersect`` kernel through the ``intersect=``
-hook); 4/5-cycles are triangulated with zero-cost chord edges allocated
-from the instance's free padded slots.
+Port of ``repro.core.cycles``. A conflicted cycle holds exactly one
+repulsive edge. Two data paths enumerate them, and give identical
+triangles and chords whenever the row cap covers the attractive degrees:
 
-The reference's ``vmap``s become batch dimensions written out and its
-``lax.scan`` chunk streams become Python loops. Separation splits into a
-candidate phase (per-repulsive-edge, read-only) and an allocate/assemble
-phase in canonical (repulsive-edge, chord-kind) order, so results do not
-depend on ``separation_chunk``. The dense (N, N) path, ``splice_csr``
-(``update_csr``) and ``separation_shards > 1`` are not ported yet.
+* **dense** — (N, N) boolean adjacency and edge-index matrices: common
+  neighbours are a row AND, 2-path existence a row-dot ``A⁺A⁺``;
+* **sparse** — sorted-row intersection of CSR row windows (the
+  ``cycle_intersect`` kernel through the ``intersect=`` hook), O(N + E).
+
+4/5-cycles are triangulated with zero-cost chord edges allocated from the
+instance's free padded slots (shared by both paths). The reference's
+``vmap``s become batch dimensions written out and its ``lax.scan`` chunk
+streams become Python loops. Sparse separation splits into a candidate
+phase (per-repulsive-edge, read-only) and an allocate/assemble phase in
+canonical (repulsive-edge, chord-kind) order, so results do not depend on
+``separation_chunk``. ``separation_shards > 1`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,13 +23,62 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.contraction import adjacency_dense
 from repro_torch.core.graph import (
     CsrGraph, DEFAULT_SPARSE_THRESHOLD, MulticutInstance, csr_filter,
     csr_from_instance, csr_lookup_edge, csr_row_window, lexsort,
-    resolve_graph_impl,
+    resolve_graph_impl, splice_csr,
 )
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref
 from repro_torch.sparse.segment_ops import segment_max, segment_min
+
+
+class DenseAdj(NamedTuple):
+    """The (N, N) boolean/index pair dense separation reads."""
+    Apos: torch.Tensor   # (N, N) bool attractive adjacency
+    eidx: torch.Tensor   # (N, N) int32 edge index or -1
+
+
+class DenseGraph(NamedTuple):
+    A: torch.Tensor      # (N, N) symmetric f32 costs
+    Apos: torch.Tensor   # (N, N) bool attractive adjacency
+    eidx: torch.Tensor   # (N, N) int32 edge index or -1
+
+
+def build_adjacency(inst: MulticutInstance) -> DenseAdj:
+    """Boolean adjacency + edge-index matrices (what separation reads).
+
+    The reference's scatter-max ``Apos.at[su, sv].max(pos)`` is an OR, so
+    here every attractive edge fills True and every other edge fills a
+    discarded slot: deterministic without atomics. ``eidx`` is an int32
+    ``scatter_reduce_("amax")`` over flat indices, order-free. Invalid
+    edges point at (0, 0), which is reset to -1 afterwards, as in the
+    reference."""
+    N = inst.num_nodes
+    dev = inst.u.device
+    ev = inst.edge_valid
+    pos = ev & (inst.cost > 0)
+    su = torch.where(ev, inst.u, torch.zeros_like(inst.u)).long()
+    sv = torch.where(ev, inst.v, torch.zeros_like(inst.v)).long()
+    drop = torch.full_like(su, N * N)
+    flat = torch.cat([torch.where(pos, su * N + sv, drop),
+                      torch.where(pos, sv * N + su, drop)])
+    Apos = torch.zeros(N * N + 1, dtype=torch.bool, device=dev)
+    Apos.index_fill_(0, flat, True)
+    eid = torch.where(ev, torch.arange(inst.num_edges, dtype=torch.int32,
+                                       device=dev),
+                      torch.full_like(inst.u, -1)).to(torch.int32)
+    eidx = torch.full((N * N,), -1, dtype=torch.int32, device=dev)
+    eidx.scatter_reduce_(0, torch.cat([su * N + sv, sv * N + su]),
+                         torch.cat([eid, eid]), "amax", include_self=True)
+    eidx[:1].fill_(-1)
+    return DenseAdj(Apos=Apos[:N * N].view(N, N), eidx=eidx.view(N, N))
+
+
+def build_dense(inst: MulticutInstance) -> DenseGraph:
+    """Full dense view including the f32 cost matrix (tests / oracles)."""
+    adj = build_adjacency(inst)
+    return DenseGraph(A=adjacency_dense(inst), Apos=adj.Apos, eidx=adj.eidx)
 
 
 def _topk_lowest_index(score: torch.Tensor, k: int):
@@ -62,6 +114,10 @@ class Triangles(NamedTuple):
 class CycleSeparationResult(NamedTuple):
     instance: MulticutInstance  # possibly with new zero-cost chord edges
     triangles: Triangles
+    # all-edges CSR of ``instance`` (chords spliced in), only when the
+    # caller asks (``separate(..., update_csr=True)``) on the sparse path,
+    # so mode d carries its CSR across rounds instead of rebuilding it
+    csr: CsrGraph | None = None
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -72,6 +128,29 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # 3-cycles
 # ---------------------------------------------------------------------------
+
+def separate_triangles(inst: MulticutInstance, adj: DenseAdj,
+                       max_neg: int, max_tri_per_edge: int) -> Triangles:
+    """3-cycles, dense path: for each repulsive edge (i, j) up to K common
+    attractive neighbours k, the K smallest ids (the reference's top_k over
+    the 0/1 row AND), give triangles (ij, ik, jk)."""
+    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg)
+    i = inst.u[neg_idx.long()].long()
+    j = inst.v[neg_idx.long()].long()
+    K = min(max_tri_per_edge, inst.num_nodes)
+    common = (adj.Apos[i] & adj.Apos[j]).to(torch.float32)     # (M, N)
+    vals, ks = _topk_lowest_index(common, K)
+    good = (vals > 0) & neg_ok[:, None]
+    e_ik = adj.eidx[i[:, None], ks]
+    e_jk = adj.eidx[j[:, None], ks]
+    tri = torch.stack([neg_idx[:, None].expand(-1, K), e_ik, e_jk], dim=-1)
+    good = good & (e_ik >= 0) & (e_jk >= 0)
+    tris = tri.reshape(-1, 3).to(torch.int32)
+    goods = good.reshape(-1)
+    return Triangles(edges=torch.where(goods[:, None], tris,
+                                       torch.zeros_like(tris)),
+                     valid=goods)
+
 
 def triangles_from_windows(ci, ei, oki, cj, ej, e_, ok_, K, intersect):
     """Triangle candidates from prefetched endpoint windows: ``ci``/``ei``/
@@ -247,10 +326,13 @@ def _assemble_cycles45(v0, v4, b1, b2, b3, is4, found, lookup,
 
 
 def _alloc_and_assemble(inst: MulticutInstance, lookup, v0, v4, b1, b2, b3,
-                        is4, found) -> CycleSeparationResult:
+                        is4, found, splice_into: CsrGraph | None = None,
+                        ) -> CycleSeparationResult:
     """Resolve the winning pairs' chords in canonical (repulsive-edge-index,
     chord-kind) order — chord 1 = (v1, v4) and chord 2 = (v2, v4)
-    interleaved in ONE batch — then triangulate."""
+    interleaved in ONE batch — then triangulate. ``splice_into`` (the
+    caller's all-edges CSR of ``inst``) also splices the fresh chords into
+    that CSR, equal to rebuilding it from the chorded instance."""
     lo1, hi1 = torch.minimum(b1, v4), torch.maximum(b1, v4)
     lo2, hi2 = torch.minimum(b2, v4), torch.maximum(b2, v4)
     ex = torch.stack([lookup(lo1, hi1), lookup(lo2, hi2)], dim=1).reshape(-1)
@@ -262,7 +344,14 @@ def _alloc_and_assemble(inst: MulticutInstance, lookup, v0, v4, b1, b2, b3,
     ok = a.ok.reshape(-1, 2)
     tri = _assemble_cycles45(v0, v4, b1, b2, b3, is4, found, lookup,
                              eid[:, 0], ok[:, 0], eid[:, 1], ok[:, 1])
-    return CycleSeparationResult(instance=a.instance, triangles=tri)
+    csr2 = None
+    if splice_into is not None:
+        no_drop = torch.zeros(inst.num_edges, dtype=torch.bool,
+                              device=inst.u.device)
+        csr2 = splice_csr(splice_into, no_drop, a.add_u, a.add_v,
+                          a.add_eid, a.add_ok)
+    return CycleSeparationResult(instance=a.instance, triangles=tri,
+                                 csr=csr2)
 
 
 def _pad_batch_axis(a, pad: int):
@@ -356,11 +445,76 @@ def _run_long_bucket(fn, consts, edge_args, is_long, chunk: int, shards: int,
     return _map_long_chunks(fn, consts, edge_args, is_long, C)
 
 
+def separate_cycles45(inst: MulticutInstance, adj: DenseAdj, max_neg: int,
+                      nbr_k: int = 4) -> CycleSeparationResult:
+    """4/5-cycles per Alg. 5, dense path: for repulsive edge (v0, v4), scan
+    pairs (v1, v3) ∈ N⁺(v0) × N⁺(v4); a 4-cycle needs v1v3 ∈ E⁺, a 5-cycle
+    a common attractive neighbour v2 (a row-dot of ``A⁺``). The best pair
+    per repulsive edge is triangulated with zero-cost chords.
+
+    The reference casts the whole (N, N) ``A⁺`` to float32 and gathers its
+    rows; here only the gathered rows are cast (same values, no (N, N)
+    float copy). The (M, nbr_k, N) × (M, N, nbr_k) pair product counts 0/1
+    products, exact in float32, so ``torch.matmul`` gives the reference's
+    counts."""
+    N = inst.num_nodes
+    nbr_k = min(nbr_k, N)
+    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg)
+    v0 = inst.u[neg_idx.long()]
+    v4 = inst.v[neg_idx.long()]
+    Apos = adj.Apos
+    M = v0.shape[0]
+    dev = v0.device
+
+    def rows(nodes):
+        return Apos[nodes.long()].to(torch.float32)
+
+    w0, n0 = _topk_lowest_index(rows(v0), nbr_k)        # (M, nbr_k)
+    w4, n4 = _topk_lowest_index(rows(v4), nbr_k)
+    ok0 = w0 > 0
+    ok4 = w4 > 0
+    pair_ok = ok0[:, :, None] & ok4[:, None, :] & neg_ok[:, None, None]
+    v1 = n0[:, :, None].expand(M, nbr_k, nbr_k)
+    v3 = n4[:, None, :].expand(M, nbr_k, nbr_k)
+    distinct = (v1 != v3) & (v1 != v4[:, None, None].long()) & \
+        (v3 != v0[:, None, None].long())
+    is4 = pair_ok & distinct & Apos[v1, v3]
+    pair_counts = torch.matmul(rows(n0), rows(n4).transpose(1, 2))
+    is5 = pair_ok & distinct & ~is4 & (pair_counts > 0)
+    two = torch.full(is4.shape, 2.0, device=dev)
+    one = torch.full(is4.shape, 1.0, device=dev)
+    ninf = torch.full(is4.shape, float("-inf"), device=dev)
+    # prefer 4-cycles, then the strongest attractive support
+    score = torch.where(is4, two, torch.where(is5, one, ninf)) \
+        + torch.minimum(w0[:, :, None], w4[:, None, :]) * 1e-3
+    # jnp.argmax and torch.argmax both take the FIRST maximum
+    flat = torch.argmax(score.reshape(M, -1), dim=1)
+    bi, bj = flat // nbr_k, flat % nbr_k
+    m = torch.arange(M, device=dev)
+    found = score.reshape(M, -1)[m, flat] > float("-inf")
+    b1 = n0[m, bi]
+    b3 = n4[m, bj]
+    b_is4 = is4[m, bi, bj]
+    # v2 = the smallest common attractive neighbour of (v1, v3) other than
+    # the repulsive endpoints
+    common = (Apos[b1] & Apos[b3]).to(torch.float32)
+    common.scatter_(1, v0[:, None].long(), 0.0)
+    common.scatter_(1, v4[:, None].long(), 0.0)
+    b2 = torch.argmax(common, dim=1)
+    has_v2 = common[m, b2] > 0
+    found = found & (b_is4 | has_v2)
+    return _alloc_and_assemble(
+        inst, lambda a, b: adj.eidx[a.long(), b.long()], v0, v4,
+        b1.to(torch.int32), b2.to(torch.int32), b3.to(torch.int32), b_is4,
+        found)
+
+
 def separate_cycles45_sparse(inst: MulticutInstance, csr_pos: CsrGraph,
                              csr_all: CsrGraph, max_neg: int, nbr_k: int = 4,
                              row_cap: int = 128, row_cap_short: int = 0,
                              intersect=None,
-                             chunk: int = 0, shards: int = 1
+                             chunk: int = 0, shards: int = 1,
+                             splice_into: CsrGraph | None = None,
                              ) -> CycleSeparationResult:
     """4/5-cycles, CSR path (mirrors the dense scan pair for pair):
     neighbour fans are the first ``nbr_k`` entries of each sorted attractive
@@ -466,7 +620,8 @@ def separate_cycles45_sparse(inst: MulticutInstance, csr_pos: CsrGraph,
         b1, b2, b3, is4, found = _combine_buckets(is_long, out_s, out_l)
     return _alloc_and_assemble(inst,
                                lambda a, b: csr_lookup_edge(csr_all, a, b),
-                               v0, v4, b1, b2, b3, is4, found)
+                               v0, v4, b1, b2, b3, is4, found,
+                               splice_into=splice_into)
 
 
 # ---------------------------------------------------------------------------
@@ -475,42 +630,52 @@ def separate_cycles45_sparse(inst: MulticutInstance, csr_pos: CsrGraph,
 
 def separate(inst: MulticutInstance, max_neg: int, max_tri_per_edge: int,
              with_cycles45: bool = True, nbr_k: int = 4,
-             graph_impl: str = "sparse", sparse_row_cap: int = 128,
+             graph_impl: str = "dense", sparse_row_cap: int = 128,
              sparse_row_cap_short: int = 0,
              sparse_threshold: int = DEFAULT_SPARSE_THRESHOLD, intersect=None,
              csr: CsrGraph | None = None, separation_chunk: int = 0,
-             separation_shards: int = 1) -> CycleSeparationResult:
+             separation_shards: int = 1,
+             update_csr: bool = False) -> CycleSeparationResult:
     """Full separation round: 3-cycles always; 4/5-cycles optionally.
 
-    ``csr`` is the caller's live all-edges CSR of ``inst``; the attractive
-    E⁺ view is a sort-free :func:`csr_filter` over it (one ``build_csr``
-    here when absent). ``intersect`` swaps the sorted-row intersection
-    (None = plain version, or the cycle_intersect kernel wrapper)."""
+    ``graph_impl`` selects the data path ("auto" flips to CSR above
+    ``sparse_threshold`` padded nodes). On the sparse path ``csr`` is the
+    caller's live all-edges CSR of ``inst``; the attractive E⁺ view is a
+    sort-free :func:`csr_filter` over it (one ``build_csr`` here when
+    absent). ``intersect`` swaps the sorted-row intersection (None = plain
+    version, or the cycle_intersect kernel wrapper). ``update_csr`` asks
+    the sparse path to return that CSR with the round's fresh chords
+    spliced in (``result.csr``). The dense path ignores ``csr``,
+    ``intersect``, the row caps and the chunking."""
     impl = resolve_graph_impl(graph_impl, inst.num_nodes, sparse_threshold)
     if impl == "dense":
-        raise NotImplementedError(
-            "the dense separation path is not ported yet (ROADMAP Queue 1 "
-            "item 7); use graph_impl='sparse'")
-    csr_all = csr_from_instance(inst) if csr is None else csr
-    csr_pos = csr_filter(csr_all, inst.edge_valid & (inst.cost > 0))
-    tri3 = separate_triangles_sparse(inst, csr_pos, max_neg,
-                                     max_tri_per_edge,
-                                     row_cap=sparse_row_cap,
-                                     row_cap_short=sparse_row_cap_short,
-                                     intersect=intersect,
-                                     chunk=separation_chunk,
-                                     shards=separation_shards)
-    if not with_cycles45:
-        return CycleSeparationResult(instance=inst, triangles=tri3)
-    res45 = separate_cycles45_sparse(inst, csr_pos, csr_all, max_neg,
-                                     nbr_k=nbr_k,
-                                     row_cap=sparse_row_cap,
-                                     row_cap_short=sparse_row_cap_short,
-                                     intersect=intersect,
-                                     chunk=separation_chunk,
-                                     shards=separation_shards)
+        adj = build_adjacency(inst)
+        tri3 = separate_triangles(inst, adj, max_neg, max_tri_per_edge)
+        if not with_cycles45:
+            return CycleSeparationResult(instance=inst, triangles=tri3)
+        res45 = separate_cycles45(inst, adj, max_neg, nbr_k=nbr_k)
+    else:
+        csr_all = csr_from_instance(inst) if csr is None else csr
+        csr_pos = csr_filter(csr_all, inst.edge_valid & (inst.cost > 0))
+        tri3 = separate_triangles_sparse(inst, csr_pos, max_neg,
+                                         max_tri_per_edge,
+                                         row_cap=sparse_row_cap,
+                                         row_cap_short=sparse_row_cap_short,
+                                         intersect=intersect,
+                                         chunk=separation_chunk,
+                                         shards=separation_shards)
+        if not with_cycles45:
+            return CycleSeparationResult(
+                instance=inst, triangles=tri3,
+                csr=csr_all if update_csr else None)
+        res45 = separate_cycles45_sparse(
+            inst, csr_pos, csr_all, max_neg, nbr_k=nbr_k,
+            row_cap=sparse_row_cap, row_cap_short=sparse_row_cap_short,
+            intersect=intersect, chunk=separation_chunk,
+            shards=separation_shards,
+            splice_into=csr_all if update_csr else None)
     edges = torch.cat([tri3.edges, res45.triangles.edges], dim=0)
     valid = torch.cat([tri3.valid, res45.triangles.valid], dim=0)
-    return CycleSeparationResult(instance=res45.instance,
-                                 triangles=Triangles(edges=edges,
-                                                     valid=valid))
+    return CycleSeparationResult(
+        instance=res45.instance,
+        triangles=Triangles(edges=edges, valid=valid), csr=res45.csr)

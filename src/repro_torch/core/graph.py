@@ -329,6 +329,96 @@ def csr_lookup_edge(csr: CsrGraph, a, b) -> torch.Tensor:
                        torch.full_like(csr.edge_id[p], -1))
 
 
+def _lex_count_less(rows, cols, eids, live, r, c, e) -> torch.Tensor:
+    """Count of live CSR entries whose (row, col, edge_id) key sorts
+    strictly before each (r, c, e) — a lexicographic bisect over the
+    globally sorted entry arrays, batched over the queries, with the
+    reference's fixed ceil(log2(nnz))+1 iterations."""
+    nnz = cols.shape[0]
+    iters = max(1, int(np.ceil(np.log2(max(2, nnz)))) + 1)
+    lo = torch.zeros(r.shape, dtype=torch.int64, device=r.device)
+    hi = live.to(torch.int64).expand(r.shape)
+    for _ in range(iters):
+        mid = ((lo + hi) // 2).clamp(0, nnz - 1)
+        rm, cm, em = rows[mid], cols[mid], eids[mid]
+        less = (rm < r) | ((rm == r) & ((cm < c) | ((cm == c) & (em < e))))
+        active = lo < hi
+        go_right = active & less
+        lo2 = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(active, torch.where(go_right, hi, mid), hi)
+        lo = lo2
+    return lo
+
+
+def splice_csr(csr: CsrGraph, drop_edge: torch.Tensor, add_u: torch.Tensor,
+               add_v: torch.Tensor, add_eid: torch.Tensor,
+               add_ok: torch.Tensor) -> CsrGraph:
+    """Merge an edge patch into a live CSR without a COO→CSR rebuild.
+
+    ``drop_edge`` is an (E,) mask of edge ids whose entries leave the CSR;
+    ``add_u``/``add_v``/``add_eid`` are (P,) new undirected edges (masked
+    by ``add_ok``) inserted under their instance edge ids. Deletion is the
+    prefix-sum compaction of :func:`csr_filter`; insertion sorts only the
+    2P new directed entries and merges them into the sorted live region by
+    a lexicographic bisect per new entry. Equal to ``build_csr`` of the
+    patched instance, as in the reference. Every scatter writes distinct
+    positions (the merge is a permutation) apart from the discarded drop
+    slot, so the result does not depend on scatter order."""
+    nnz = csr.col.shape[0]
+    N = csr.num_nodes
+    P = add_u.shape[0]
+    dev = csr.col.device
+
+    # 1. drop: compact out every entry of a dropped edge
+    keep = (csr.edge_id >= 0) & ~drop_edge[csr.edge_id.clamp(min=0).long()]
+    kept_before = torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32)])
+    row_ptr_c = kept_before[csr.row_ptr.long()].to(torch.int32)
+    dest = torch.where(keep, kept_before[1:] - 1,
+                       torch.full_like(kept_before[1:], nnz))
+    col_c = _scatter_into(nnz, N, dest, csr.col)
+    eid_c = _scatter_into(nnz, -1, dest, csr.edge_id)
+    live = row_ptr_c[N]
+    ar = torch.arange(nnz, dtype=torch.int32, device=dev)
+    # per-entry row id from row_ptr (the dead tail lands on row N)
+    row_c = (torch.searchsorted(row_ptr_c, ar, right=True) - 1) \
+        .to(torch.int32)
+
+    # 2. the one bounded sort: 2P new directed entries by (src, dst, eid)
+    src_n = torch.cat([add_u, add_v]).to(torch.int32)
+    dst_n = torch.cat([add_v, add_u]).to(torch.int32)
+    eid_n = torch.cat([add_eid, add_eid]).to(torch.int32)
+    ok_n = torch.cat([add_ok, add_ok])
+    sent = torch.full_like(src_n, N)
+    src_n = torch.where(ok_n, src_n, sent)
+    dst_n = torch.where(ok_n, dst_n, sent)
+    order = lexsort((eid_n, dst_n, src_n))
+    src_s, ok_s = src_n[order], ok_n[order]
+    dst_s = torch.where(ok_s, dst_n[order], sent)
+    eid_s = torch.where(ok_s, eid_n[order], torch.full_like(eid_n, -1))
+
+    # 3. merge: each new entry bisects the live region (keys never collide:
+    # an inserted edge id's old entries were dropped in step 1); old
+    # entries shift by the number of new entries inserted at or before them
+    ins = _lex_count_less(row_c, col_c, eid_c, live, src_s, dst_s, eid_s)
+    new_pos = ins + torch.arange(2 * P, dtype=torch.int64, device=dev)
+    shift = torch.searchsorted(ins, ar.to(torch.int64), right=True)
+    old_pos = ar.to(torch.int64) + shift
+
+    def place(fill, old, new):
+        out = torch.full((nnz + 1,), fill, dtype=torch.int32, device=dev)
+        out.scatter_(0, old_pos.clamp(max=nnz), old)
+        out.scatter_(0, new_pos.clamp(max=nnz), new)
+        return out[:nnz]
+
+    row_ptr2 = row_ptr_c + torch.searchsorted(
+        src_s, torch.arange(N + 1, dtype=torch.int32, device=dev),
+        side="left").to(torch.int32)
+    return CsrGraph(row_ptr=row_ptr2, col=place(N, col_c, dst_s),
+                    edge_id=place(-1, eid_c, eid_s))
+
+
 def resolve_graph_impl(graph_impl: str, num_nodes: int,
                        threshold: int = DEFAULT_SPARSE_THRESHOLD) -> str:
     """Static dense/sparse dispatch: "auto" flips to the CSR data path once

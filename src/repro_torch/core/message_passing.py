@@ -41,6 +41,16 @@ def edge_degree(state: MPState, num_edges: int) -> torch.Tensor:
                        num_edges).to(torch.int32)
 
 
+def triangle_plan(state: MPState, num_edges: int) -> SegmentPlan:
+    """The fixed-order sum plan of the valid triangles' edge slots. Invalid
+    rows (zeroed, so all on edge 0) contribute exactly 0.0 and adding 0.0
+    changes no sum, so they are left out rather than lengthening edge 0's
+    sum."""
+    ids = torch.where(state.tri_valid[:, None], state.tri,
+                      torch.full_like(state.tri, -1))
+    return segment_plan(ids.reshape(-1), num_edges)
+
+
 def reparametrized_costs(cost, state: MPState,
                          plan: SegmentPlan | None = None) -> torch.Tensor:
     """c^λ_e = c_e + Σ_{t ∋ e} λ_{t,e} = c_e − Σ t_cost.
@@ -51,7 +61,7 @@ def reparametrized_costs(cost, state: MPState,
     across iterations (they do not change during one MP phase)."""
     E = cost.shape[0]
     if plan is None:
-        plan = segment_plan(state.tri.reshape(-1), E)
+        plan = triangle_plan(state, E)
     contrib = torch.where(state.tri_valid[:, None], -state.t_cost,
                           torch.zeros_like(state.t_cost))
     return cost + plan.sum(contrib)
@@ -129,7 +139,7 @@ def run_message_passing(cost, edge_valid, state: MPState, iters: int,
     The triangle edge ids are fixed for the phase, so their sort order and
     edge degrees are computed once."""
     E = cost.shape[0]
-    plan = segment_plan(state.tri.reshape(-1), E)
+    plan = triangle_plan(state, E)
     deg = edge_degree(state, E)
     for _ in range(iters):
         state = edges_to_triangles(state, cost, plan, deg)

@@ -1,15 +1,24 @@
-"""Primal-dual multicut solver (RAMA Alg. 3), PD / PD+ on the sparse path.
+"""Primal-dual multicut solver (RAMA Alg. 3) and the paper's variants.
 
-Port of ``repro.core.solver`` for the main path: modes ``pd`` and ``pd+``
-on the sparse CSR data path. Each round runs separation → message passing
-→ reparametrise → contract on a fixed-shape padded instance; the CSR is
-built once per solve and maintained by contraction (:class:`SolverState`).
+Port of ``repro.core.solver``:
 
-The reference runs the outer loop as a ``lax.while_loop`` with no host
-sync. Torch runs eagerly, so this loop reads the round's contraction count
+  P   — purely primal: matching / spanning-forest contraction only.
+  PD  — interleaved: cycle separation (5-cycles on the original graph,
+        3-cycles on contracted graphs) → k message-passing iterations →
+        reparametrise → contract. LB from the first (original-graph) round.
+  PD+ — PD with 5-cycle separation in every round.
+  D   — dual only: separation + message passing on the original graph.
+
+Every mode runs on both separation data paths (``graph_impl``): on the
+sparse path the CSR is built once per solve and maintained by contraction
+(:class:`SolverState`), or, in mode D, by splicing each round's chords in;
+the dense path rebuilds its (N, N) matrices each round.
+
+The reference runs the outer loops as ``lax.while_loop``s with no host
+sync. Torch runs eagerly, so P and PD read the round's contraction count
 to exit early on zero — one host sync per round — and the connected
-components and long-bucket separation pass add their own. CUDA graphs come
-later.
+components and long-bucket separation pass add their own. D is a fixed
+number of rounds and needs no exit sync. CUDA graphs come later.
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.contraction import choose_contraction_set, \
-    contract_csr
+    contract, contract_csr
 from repro_torch.core.cycles import separate
 from repro_torch.core.graph import (
     DEFAULT_SPARSE_THRESHOLD, GRAPH_IMPLS, CsrGraph, MulticutInstance,
@@ -111,18 +120,22 @@ def resolve_intersect(backend: str | None):
 
 class SolverState(NamedTuple):
     """Solver state threaded through the outer round loop: the current
-    contracted instance, its live all-edges CSR (built once, maintained by
-    :func:`contract_csr`), and the original→cluster mapping."""
+    contracted instance, its live all-edges CSR (sparse path: built once,
+    maintained by :func:`contract_csr`; None on the dense path), and the
+    original→cluster mapping."""
     instance: MulticutInstance
-    csr: CsrGraph
+    csr: CsrGraph | None
     mapping: torch.Tensor
 
 
 def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
-                     with45: bool, sweep=None, intersect=None, csr=None):
-    """One separation + message-passing round. Returns (inst', c_rep, lb).
-    The ``repro.*`` ranges name the round's phases in a torch.profiler
-    trace, as the reference's ``jax.named_scope``s do in its HLO."""
+                     with45: bool, sweep=None, intersect=None, csr=None,
+                     update_csr: bool = False):
+    """One separation + message-passing round. Returns (inst', c_rep, lb,
+    csr') — ``csr'`` is the chord-spliced all-edges CSR when
+    ``update_csr`` (sparse path), else None. The ``repro.*`` ranges name
+    the round's phases in a torch.profiler trace, as the reference's
+    ``jax.named_scope``s do in its HLO."""
     with record_function("repro.separation"):
         sep = separate(inst, max_neg=cfg.max_neg,
                        max_tri_per_edge=cfg.max_tri_per_edge,
@@ -133,50 +146,112 @@ def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
                        sparse_threshold=cfg.sparse_threshold,
                        intersect=intersect, csr=csr,
                        separation_chunk=cfg.separation_chunk,
-                       separation_shards=cfg.separation_shards)
+                       separation_shards=cfg.separation_shards,
+                       update_csr=update_csr)
     inst2 = sep.instance
     with record_function("repro.message_passing"):
         state = init_mp(sep.triangles)
         state, c_rep, lb = run_message_passing(
             inst2.cost, inst2.edge_valid, state, cfg.mp_iters, sweep=sweep)
-    return inst2, c_rep, lb
+    return inst2, c_rep, lb, sep.csr
+
+
+def _contraction_set(inst: MulticutInstance, cfg: SolverConfig):
+    return choose_contraction_set(inst, matching_rounds=cfg.matching_rounds,
+                                  forest_rounds=cfg.forest_rounds,
+                                  switch_frac=cfg.switch_frac,
+                                  contract_frac=cfg.contract_frac)
+
+
+def _primal_round_core(inst: MulticutInstance, cfg: SolverConfig):
+    with record_function("repro.contraction"):
+        return contract(inst, _contraction_set(inst, cfg))
+
+
+def fused_pd_round(inst: MulticutInstance, cfg: SolverConfig, with45: bool,
+                   sweep=None, intersect=None):
+    """Alg. 3 lines 3–8 as one unit: separation → message passing →
+    reparametrise → contract. Returns (ContractionResult, lb)."""
+    inst2, c_rep, lb, _ = _dual_round_core(inst, cfg, with45, sweep,
+                                           intersect)
+    return _primal_round_core(inst2._replace(cost=c_rep), cfg), lb
+
+
+def _dense_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
+                       sweep=None, intersect=None):
+    """:func:`fused_pd_round` in the shape of :func:`fused_pd_round_state`
+    (the dense path carries no CSR)."""
+    res, lb = fused_pd_round(state.instance, cfg, with45, sweep, intersect)
+    state2 = SolverState(instance=res.instance, csr=None,
+                         mapping=res.mapping[state.mapping.long()])
+    return state2, lb, res
 
 
 def fused_pd_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
                          sweep=None, intersect=None):
-    """The state-carrying PD round: separation reads the carried CSR,
-    contraction maintains it, and the original→cluster mapping composes.
-    Returns (SolverState', lb, ContractionResult)."""
-    inst2, c_rep, lb = _dual_round_core(state.instance, cfg, with45, sweep,
-                                        intersect, csr=state.csr)
+    """The state-carrying PD round (sparse data path): separation reads the
+    carried CSR, contraction maintains it, and the original→cluster mapping
+    composes. Returns (SolverState', lb, ContractionResult)."""
+    inst2, c_rep, lb, _ = _dual_round_core(state.instance, cfg, with45,
+                                           sweep, intersect, csr=state.csr)
     inst3 = inst2._replace(cost=c_rep)
     with record_function("repro.contraction"):
-        S = choose_contraction_set(inst3,
-                                   matching_rounds=cfg.matching_rounds,
-                                   forest_rounds=cfg.forest_rounds,
-                                   switch_frac=cfg.switch_frac,
-                                   contract_frac=cfg.contract_frac)
-        res, csr2 = contract_csr(inst3, S)
+        res, csr2 = contract_csr(inst3, _contraction_set(inst3, cfg))
     state2 = SolverState(instance=res.instance, csr=csr2,
                          mapping=res.mapping[state.mapping.long()])
     return state2, lb, res
 
 
-def _solve_pd_sparse(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
+def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig):
+    """Purely primal Algorithm 1 loop (paper's P): contract until a round
+    contracts nothing or ``max_rounds`` — one host sync per round. There is
+    no dual: the lower bound and its history stay -inf."""
+    N, R = inst.num_nodes, cfg.max_rounds
+    dev = inst.device
+    mapping = torch.arange(N, dtype=torch.int32, device=dev)
+    hist_nc = torch.zeros((R,), dtype=torch.int32, device=dev)
+    hist_nk = torch.zeros((R,), dtype=torch.int32, device=dev)
+    cur = inst
+    r = 0
+    while r < R:
+        res = _primal_round_core(cur, cfg)
+        hist_nc[r] = res.n_contracted.to(torch.int32)
+        hist_nk[r] = res.n_new.to(torch.int32)
+        mapping = res.mapping[mapping.long()]
+        cur = res.instance
+        r += 1
+        if int(res.n_contracted) == 0:
+            break
+    ninf = float("-inf")
+    return SolveResult(
+        labels=mapping, objective=inst.objective(mapping),
+        lower_bound=torch.tensor(ninf, dtype=torch.float32, device=dev),
+        rounds=torch.tensor(r, dtype=torch.int32, device=dev),
+        lb_history=torch.full((R,), ninf, dtype=torch.float32, device=dev),
+        n_contracted=hist_nc, n_clusters=hist_nk)
+
+
+def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
                      sweep=None, intersect=None):
-    """Sparse-path PD/PD+: ``build_csr`` runs once, before round 0; every
-    later round reads the CSR the previous round's contraction maintained.
-    Round 0 may separate 4/5-cycles and gives the solve's lower bound (the
-    only one valid on the original graph). The loop exits early when a
-    round contracts nothing — one host sync per round."""
+    """Interleaved primal-dual Algorithm 3 (paper's PD / PD+) on either data
+    path. The sparse path runs the :class:`SolverState` recursion:
+    ``build_csr`` once, before round 0, and every later round reads the CSR
+    the previous round's contraction maintained. The dense path rebuilds
+    its (N, N) matrices each round, as the reference does. Round 0 may
+    separate 4/5-cycles and gives the solve's lower bound (the only one
+    valid on the original graph). The loop exits early when a round
+    contracts nothing — one host sync per round."""
     N, R = inst.num_nodes, cfg.max_rounds
     dev = inst.device
     with45_first = cfg.always_cycles45 or plus or cfg.first_round_cycles45
     with45_rest = cfg.always_cycles45 or plus
+    sparse = resolve_graph_impl(cfg.graph_impl, N,
+                                cfg.sparse_threshold) == "sparse"
+    step = fused_pd_round_state if sparse else _dense_round_state
 
     state = SolverState(
         instance=inst,
-        csr=csr_from_instance(inst),
+        csr=csr_from_instance(inst) if sparse else None,
         mapping=torch.arange(N, dtype=torch.int32, device=dev))
     hist_lb = torch.full((R,), float("-inf"), dtype=torch.float32,
                          device=dev)
@@ -185,9 +260,9 @@ def _solve_pd_sparse(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
     lb0 = None
     r = 0
     while r < R:
-        state, lb, res = fused_pd_round_state(
-            state, cfg, with45_first if r == 0 else with45_rest, sweep,
-            intersect)
+        state, lb, res = step(state, cfg,
+                              with45_first if r == 0 else with45_rest,
+                              sweep, intersect)
         if r == 0:
             lb0 = lb
         hist_lb[r] = lb
@@ -204,20 +279,63 @@ def _solve_pd_sparse(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
                        n_clusters=hist_nk)
 
 
+def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, sweep=None,
+                    intersect=None):
+    """Dual-only solver (paper's D): ``dual_rounds`` rounds of separation +
+    message passing on the original graph; the LB is monotone across
+    rounds. Returns (SolveResult, final instance).
+
+    LB accounting: ``run_message_passing`` returns lb_r = edgeLB_r +
+    triLB_r; the triangle parts add up across rounds and only the last
+    round's edge part counts, LB_total = Σ_r triLB_r + Σ_e min(0,
+    c^rep_final), summed in the reference's order. On the sparse path the
+    all-edges CSR is built once and each round's fresh chords are spliced
+    in (``update_csr``); the dense path has no CSR. A fixed number of
+    rounds: no exit sync."""
+    R = cfg.dual_rounds
+    N = inst.num_nodes
+    dev = inst.device
+    sparse = resolve_graph_impl(cfg.graph_impl, N,
+                                cfg.sparse_threshold) == "sparse"
+    csr = csr_from_instance(inst) if sparse else None
+    cur = inst
+    tri_lb_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    per_round = []
+    for _ in range(R):
+        cur2, c_rep, lb, csr = _dual_round_core(cur, cfg, True, sweep,
+                                                intersect, csr=csr,
+                                                update_csr=sparse)
+        edge_lb = torch.where(cur2.edge_valid,
+                              torch.clamp(c_rep, max=0.0),
+                              torch.zeros_like(c_rep)).sum()
+        tri_lb_sum = tri_lb_sum + (lb - edge_lb)
+        per_round.append(tri_lb_sum + edge_lb)
+        cur = cur2._replace(cost=c_rep)
+    lb_history = torch.stack(per_round).to(torch.float32)
+    n_nodes = inst.node_valid.sum().to(torch.int32)
+    res = SolveResult(
+        labels=torch.arange(N, dtype=torch.int32, device=dev),
+        objective=torch.tensor(float("inf"), dtype=torch.float32,
+                               device=dev),
+        lower_bound=lb_history[-1],
+        rounds=torch.tensor(R, dtype=torch.int32, device=dev),
+        lb_history=lb_history,
+        n_contracted=torch.zeros((R,), dtype=torch.int32, device=dev),
+        n_clusters=n_nodes.expand(R).clone())
+    return res, cur
+
+
 def solve_device(inst: MulticutInstance, mode: str = "pd",
                  cfg: SolverConfig = SolverConfig(),
                  sweep=None, intersect=None, trace: bool = False):
-    """Solve on the instance's device: modes ``pd`` and ``pd+`` on the
-    sparse CSR path. What is not ported yet raises ``NotImplementedError``
-    naming its ROADMAP item."""
+    """Solve on the instance's device: every mode on both data paths
+    (``cfg.graph_impl``). What is not ported yet raises
+    ``NotImplementedError`` naming its ROADMAP item."""
     if cfg.graph_impl not in GRAPH_IMPLS:
         raise ValueError(f"unknown graph_impl {cfg.graph_impl!r}; expected "
                          f"one of {GRAPH_IMPLS}")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    if mode in ("p", "d"):
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP Queue 1 item 7)")
     if trace:
         raise NotImplementedError(
             "trace=True is not ported yet (ROADMAP Queue 1 item 9)")
@@ -228,13 +346,9 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
         raise NotImplementedError(
             "separation_shards > 1 is not ported yet (ROADMAP Queue 1 "
             "item 13)")
-    impl = resolve_graph_impl(cfg.graph_impl, inst.num_nodes,
-                              cfg.sparse_threshold)
-    if impl != "sparse":
-        raise NotImplementedError(
-            f"the dense data path is not ported yet (ROADMAP Queue 1 item "
-            f"7): graph_impl={cfg.graph_impl!r} resolves to dense for "
-            f"{inst.num_nodes} padded nodes (threshold "
-            f"{cfg.sparse_threshold}); pass graph_impl='sparse'")
-    return _solve_pd_sparse(inst, cfg, plus=(mode == "pd+"), sweep=sweep,
+    if mode == "p":
+        return _solve_p_device(inst, cfg)
+    if mode == "d":
+        return _solve_d_device(inst, cfg, sweep, intersect)[0]
+    return _solve_pd_device(inst, cfg, plus=(mode == "pd+"), sweep=sweep,
                             intersect=intersect)

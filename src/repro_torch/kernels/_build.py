@@ -29,6 +29,7 @@ KERNELS = {
     "triangle_mp": ["-fmad=false"],
     "cycle_intersect": [],
     "flash_attention": [],
+    "contract_matmul": [],
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -4,12 +4,14 @@ solver's main path uses).
 Out-of-range segment ids are dropped, as ``jax.ops.segment_*`` drops them:
 they are routed to one extra dead segment that is sliced off.
 
-Float sums take a FIXED order. ``index_add_``/``scatter_add_`` on CUDA use
-atomics, whose order changes from run to run; a one-ulp wobble in a
-reparametrised cost can flip a contraction decision. So :func:`segment_sum`
-stable-sorts the entries by segment and reduces each segment in input order
-with ``torch.segment_reduce`` — on the CPU that is the reference's
-sequential scatter-add order exactly. Integer min/max scatters are
+Float sums take a FIXED order, the same on every device. ``index_add_``/
+``scatter_add_`` on CUDA use atomics, whose order changes from run to run,
+and ``torch.segment_reduce`` on CUDA sums a segment in another order than on
+the CPU; a one-ulp wobble in a reparametrised cost can flip a contraction
+decision. So :func:`segment_sum` stable-sorts the entries by segment and
+adds each segment's entries one by one in input order, starting from 0.0
+(:func:`sequential_sums`) — the reference's sequential scatter-add order
+exactly, on the CPU and on the card alike. Integer min/max scatters are
 order-free and use ``scatter_reduce_``.
 """
 from __future__ import annotations
@@ -27,28 +29,53 @@ def _route(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.where(ok, ids, torch.full_like(ids, num_segments))
 
 
+def sequential_sums(data: torch.Tensor, starts: torch.Tensor,
+                    lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Sum of ``data[starts[s]:starts[s] + lengths[s]]`` for each segment
+    s, added one entry at a time in order from 0.0: step j adds every
+    segment's j-th entry, so each sum takes the same order on any device.
+    Finished segments add +0.0, which leaves a sum that starts from +0.0
+    unchanged. ``max_len`` >= every length (a host int)."""
+    acc = torch.zeros(starts.shape, dtype=data.dtype, device=data.device)
+    if data.numel() == 0:
+        return acc
+    last = data.shape[0] - 1
+    zero = torch.zeros_like(acc)
+    for j in range(max_len):
+        acc = acc + torch.where(lengths > j,
+                                data[(starts + j).clamp(max=last)], zero)
+    return acc
+
+
 class SegmentPlan(NamedTuple):
     """A fixed-order reduction plan for one segment-id array: the stable
     permutation grouping entries by segment (input order kept inside a
-    segment) and the per-segment lengths. Reused when the same ids are
-    summed many times (every message-passing iteration)."""
+    segment), each segment's start and length in that order, and the
+    longest segment. Reused when the same ids are summed many times (every
+    message-passing iteration)."""
     perm: torch.Tensor      # (n,) stable sort of the routed ids
-    lengths: torch.Tensor   # (num_segments + 1,) last = dropped ids
+    starts: torch.Tensor    # (num_segments,) first entry in sorted order
+    lengths: torch.Tensor   # (num_segments,) dropped ids not counted
+    max_len: int            # longest segment (read once, on the host)
 
     def sum(self, values: torch.Tensor) -> torch.Tensor:
-        data = values.reshape(-1)[self.perm]
-        out = torch.segment_reduce(data, "sum", lengths=self.lengths,
-                                   unsafe=True)
-        return out[:-1]
+        return sequential_sums(values.reshape(-1)[self.perm], self.starts,
+                               self.lengths, self.max_len)
 
 
 def segment_plan(segment_ids: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The plan of ``segment_ids``; out-of-range ids are dropped (they sort
+    after every segment). Costs one host sync, for the longest segment."""
     ids = _route(segment_ids.reshape(-1), num_segments)
     perm = torch.sort(ids, stable=True).indices
     lengths = torch.zeros(num_segments + 1, dtype=torch.int64,
                           device=ids.device)
     lengths.scatter_add_(0, ids, torch.ones_like(ids))
-    return SegmentPlan(perm=perm, lengths=lengths)
+    lengths = lengths[:num_segments]
+    starts = torch.cumsum(lengths, 0) - lengths
+    max_len = int(lengths.max()) if num_segments else 0
+    return SegmentPlan(perm=perm, starts=starts, lengths=lengths,
+                       max_len=max_len)
 
 
 def segment_sum(values, segment_ids, num_segments: int):

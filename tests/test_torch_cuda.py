@@ -10,6 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.contract_matmul import ops as cm_ops  # noqa: E402
+from repro_torch.kernels.contract_matmul.ref import contract_matmul_ref, \
+    matmul_ref  # noqa: E402
 from repro_torch.kernels.cycle_intersect import ops as isect_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noqa: E402,E501
@@ -184,3 +187,68 @@ def test_flash_wrapper_raises_without_a_kernel_route():
     with pytest.raises(ValueError, match="Hq % Hkv"):
         kv2 = torch.zeros((1, 2, 8, 16))
         flash_ops.flash_attention(torch.zeros((1, 3, 8, 16)), kv2, kv2)
+
+
+# contract_matmul: float32 on the FP32 pipes, summed in k order with fused
+# multiply-adds where cuBLAS sums in its own order; a TF32 product would sit
+# near 1e-4 of max |ref| and fail this gate
+CM_REL_TOL = 1e-5
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M", [(8, 3), (64, 17), (256, 256), (300, 77),
+                                 (513, 100), (2048, 512)])
+def test_contract_matmul_kernel_against_plain(cuda_device, N, M):
+    rng = np.random.default_rng(N * 1000 + M)
+    A = rng.normal(size=(N, N)).astype(np.float32)
+    A = torch.from_numpy((A + A.T) / 2).to(cuda_device)
+    f = torch.from_numpy(rng.integers(0, M, N).astype(np.int32)) \
+        .to(cuda_device)
+    n0 = cm_ops.launches
+    got = cm_ops.contract_matmul(A, f, M)
+    torch.cuda.synchronize()
+    assert cm_ops.launches == n0 + 2
+    want = contract_matmul_ref(A, f, M)
+    assert got.shape == (M, M) and not bool(got.diagonal().any())
+    assert _rel(got, want) <= CM_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (7, 13, 5), (129, 9, 130),
+                                   (300, 1000, 77), (128, 256, 384)])
+def test_matmul_kernel_strides_tails_and_diagonal(cuda_device, M, K, N):
+    """Ragged M, N and K; inputs read through transposed strides give the
+    same bits as contiguous copies; the epilogue zeroes exactly the global
+    diagonal."""
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)) \
+        .to(cuda_device)
+    y = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)) \
+        .to(cuda_device)
+    got = cm_ops.matmul(x, y)
+    assert _rel(got, matmul_ref(x, y)) <= CM_REL_TOL
+    xt = x.T.contiguous().T                 # (M, K) with strides (1, M)
+    yt = y.T.contiguous().T
+    assert torch.equal(cm_ops.matmul(xt, yt), got)
+    dd = cm_ops.matmul(x, y, drop_diag=True)
+    n = min(M, N)
+    assert not bool(dd.diagonal().any())
+    off = ~torch.eye(M, N, dtype=torch.bool, device=cuda_device)
+    assert torch.equal(dd[off], got[off])
+    assert n == dd.diagonal().numel()
+
+
+@pytest.mark.cuda
+def test_fixed_order_sums_card_equals_cpu(cuda_device):
+    """The port's float segment sums give the CPU's bits on the card."""
+    from repro_torch.sparse.segment_ops import segment_sum
+    rng = np.random.default_rng(0)
+    vals = torch.from_numpy(rng.normal(size=200000).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 50000, 200000))
+    cpu = segment_sum(vals, ids, 50000)
+    card = segment_sum(vals.to(cuda_device), ids.to(cuda_device), 50000)
+    assert torch.equal(card.cpu(), cpu)

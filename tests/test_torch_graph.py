@@ -185,3 +185,35 @@ def test_segment_ops_match_reference():
     want = jseg.segment_argmax(vals_t, ids_ok, S + 4, mask=mask)
     for x, y in zip(got, want):
         np.testing.assert_array_equal(_np(x), np.asarray(y))
+
+
+def _sequential_reference(vals, ids, S):
+    """float32 sums in input order, one addition at a time from 0.0."""
+    out = np.zeros(S, np.float32)
+    for v, i in zip(vals, ids):
+        if 0 <= i < S:
+            out[i] = np.float32(out[i] + v)
+    return out
+
+
+def test_fixed_order_sums_are_sequential():
+    """The port's float segment sums and the contraction's merged-cost sum
+    add each segment in input order, one entry at a time from 0.0, also
+    for long segments — the order a card must reproduce (on CUDA
+    ``torch.segment_reduce`` sums in another order)."""
+    from repro_torch.core.contraction import _fixed_order_run_sum
+    rng = np.random.default_rng(5)
+    n, S = 3000, 23                     # ~130 entries a segment
+    vals = (rng.normal(size=n) * 10 ** rng.uniform(-3, 3, n)) \
+        .astype(np.float32)
+    ids = rng.integers(-1, S + 1, n).astype(np.int32)
+    got = tseg.segment_sum(torch.from_numpy(vals), torch.from_numpy(ids), S)
+    np.testing.assert_array_equal(_np(got), _sequential_reference(vals, ids,
+                                                                  S))
+    # run sum: entries (is_entry) carry nondecreasing segment ids
+    is_entry = rng.random(n) < 0.6
+    seg = np.sort(rng.integers(0, S, n)).astype(np.int32)
+    got = _fixed_order_run_sum(torch.from_numpy(vals), torch.from_numpy(seg),
+                               torch.from_numpy(is_entry), S)
+    np.testing.assert_array_equal(
+        _np(got), _sequential_reference(vals[is_entry], seg[is_entry], S))

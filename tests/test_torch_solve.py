@@ -81,11 +81,15 @@ def test_backends_and_facade_agree_on_cpu():
 
 
 def test_api_raises_for_unported_parts():
+    """What ROADMAP Queue 1 item 7 ported now runs: every mode on the
+    dense path (auto below 257 padded nodes) and mode p on the sparse
+    path. What is still unported raises, naming its item."""
     inst = tg.grid_instance(6, 6, seed=0, device="cpu")   # 36 nodes: dense
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tapi.solve(inst, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tapi.solve(inst, mode="p", graph_impl="sparse", device="cpu")
+    for mode in ("p", "pd", "pd+", "d"):
+        res = tapi.solve(inst, mode=mode, device="cpu")
+        assert res.labels.shape == (36,) and int(res.rounds) >= 1
+    res = tapi.solve(inst, mode="p", graph_impl="sparse", device="cpu")
+    assert int(res.rounds) >= 1 and bool(res.lower_bound.isneginf())
     with pytest.raises(NotImplementedError, match="item 9"):
         tapi.solve(inst, graph_impl="sparse", trace=True, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
@@ -108,6 +112,7 @@ def test_port_imports_no_jax():
         "import repro_torch.kernels.triangle_mp.ops\n"
         "import repro_torch.kernels.cycle_intersect.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.contract_matmul.ops\n"
         "import repro_torch.models.transformer, repro_torch.configs\n"
         "import repro_torch.launch.serve\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
@@ -132,7 +137,7 @@ def test_chip_smoke_rehearsal_on_cpu():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 3, out.stderr[-2000:]
     assert "phase 4" in out.stdout and '"ok"' not in out.stdout
-    assert "phase 5" in out.stdout
+    assert "phase 5" in out.stdout and "phase 6" in out.stdout
     assert "labels equal True" in out.stdout
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
