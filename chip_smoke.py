@@ -7,13 +7,19 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
    builds the four kernels from ``src/repro_torch/csrc`` (one nvcc each,
-   in parallel) and prints the build seconds.
+   in parallel) and prints the build seconds, then ptxas's report of
+   each kernel function (registers, stack and spill bytes, its notes on
+   serialized wgmma or an ignored setmaxnreg).
 2. Kernels against their plain PyTorch versions on the card, at the
    listed shapes: ``triangle_mp`` must be bitwise equal, ``cycle_intersect``
    exactly equal, ``flash_attention`` within atol 1e-2 + rtol 1e-2 of
-   ``chunked_attention`` (bf16 output: about one bf16 ulp) at gemma2-9b's
-   global and local layer shapes (S = 8192), phi3-mini's and granite-34b's
-   (S = 4096), a ragged S and S = 1; ``contract_matmul`` (KᵀAK − diag, two
+   ``chunked_attention`` (bf16 output: about one bf16 ulp) and equal bits
+   from two launches, at gemma2-9b's global and local layer shapes
+   (S = 8192), phi3-mini's and granite-34b's (S = 4096), a ragged S,
+   S = 1, a window narrower than a key tile, S = 129, Hq = Hkv, D = 96
+   with a window, and the global shape without softcap (each with its
+   TFLOP/s and share of the bound, and the name of the kernel the
+   yardstick ran); ``contract_matmul`` (KᵀAK − diag, two
    launches) within max |Δ| / max |ref| <= 1e-5 of its plain version at
    the five (N, M) shapes of ``tests/test_kernels.py``, the bench shape
    (2048, 512) and (8192, 2048). Times are CUDA-event medians; the flash
@@ -167,19 +173,36 @@ KERNELS = {
 }
 # flash cases: (label, B, Hq, Hkv, S, D, window, softcap); all causal.
 # The first is the main path's head row (gemma2-9b's global layers).
+# The next four probe the kernel's tiling (BQ = 128 query rows, BK = 80
+# keys at D = 256): a window narrower than a key tile, S one row past a
+# query block, Hq = Hkv, and D = 96 (one and a half swizzle atoms) with a
+# window. The last is the head row without its softcap: what the softcap
+# costs, and the same function as the library call.
 FLASH_CASES = {
     "card": [("gemma2 global", 1, 16, 8, 8192, 256, None, 50.0),
              ("gemma2 local", 1, 16, 8, 8192, 256, 4096, 50.0),
              ("phi3-mini", 1, 32, 32, 4096, 96, None, None),
              ("granite-34b", 1, 48, 1, 4096, 128, None, None),
              ("ragged S", 2, 16, 8, 1000, 256, 300, 50.0),
-             ("S = 1", 1, 16, 8, 1, 256, None, 50.0)],
+             ("S = 1", 1, 16, 8, 1, 256, None, 50.0),
+             ("window < BK", 1, 16, 8, 1000, 256, 17, 50.0),
+             ("S = BQ + 1", 1, 16, 8, 129, 256, None, 50.0),
+             ("Hq = Hkv", 1, 16, 16, 2048, 256, None, 50.0),
+             ("D 96 window", 1, 32, 32, 2048, 96, 512, None),
+             ("gemma2 global, no softcap", 1, 16, 8, 8192, 256, None,
+              None)],
     "rehearse": [("gemma2 global", 1, 16, 8, 128, 256, None, 50.0),
                  ("gemma2 local", 1, 16, 8, 128, 256, 64, 50.0),
                  ("phi3-mini", 1, 32, 32, 64, 96, None, None),
                  ("granite-34b", 1, 48, 1, 64, 128, None, None),
                  ("ragged S", 2, 16, 8, 37, 256, 9, 50.0),
-                 ("S = 1", 1, 16, 8, 1, 256, None, 50.0)],
+                 ("S = 1", 1, 16, 8, 1, 256, None, 50.0),
+                 ("window < BK", 1, 16, 8, 100, 256, 17, 50.0),
+                 ("S = BQ + 1", 1, 16, 8, 129, 256, None, 50.0),
+                 ("Hq = Hkv", 1, 16, 16, 128, 256, None, 50.0),
+                 ("D 96 window", 1, 32, 32, 128, 96, 40, None),
+                 ("gemma2 global, no softcap", 1, 16, 8, 128, 256, None,
+                  None)],
 }
 # phase 5: (prefill S, short decode prompt, long decode context P0 (a
 # cache of S slots filled to P0 > the local window), timed decode steps
@@ -326,6 +349,8 @@ def flash_case(label, B, Hq, Hkv, S, D, window, softcap, gen) -> dict:
     sync()
     check(flash_ops.launches == n0 + (DEV.type == "cuda"),
           f"flash_attention {label}: no launch")
+    check(torch.equal(got, flash_ops.flash_attention(q, k, v, **kw)),
+          f"flash_attention {label}: two launches gave different bits")
     check(got.shape == q.shape and got.dtype == q.dtype
           and bool(torch.isfinite(got).all()),
           f"flash_attention {label}: bad output")
@@ -344,15 +369,22 @@ def flash_case(label, B, Hq, Hkv, S, D, window, softcap, gen) -> dict:
     def library():      # softcap and window off: the nearest one call
         sdpa(q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
 
+    kernel_ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v, **kw))
+    bound_ms = max(t_bytes, t_ops)
+    top = profile_device(library).get("top_device_kernels", [])
     return dict(label=label, shape=[B, Hq, Hkv, S, D], window=window,
-                softcap=softcap, max_abs_err=err,
-                kernel_ms=cuda_ms(lambda: flash_ops.flash_attention(
-                    q, k, v, **kw)),
+                softcap=softcap, max_abs_err=err, kernel_ms=kernel_ms,
                 plain_ms=cuda_ms(lambda: chunked_attention(q, k, v, **kw),
                                  reps=5, warmup=1),
                 library_ms=cuda_ms(library),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                # the library call does every causal pair, window or not
+                library_pairs_ratio=visible_pairs(S, None)
+                / visible_pairs(S, window),
+                library_kernel=top[0]["name"] if top else None,
+                bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                tflop_per_s=flops / kernel_ms / 1e9,
+                bound_share=bound_ms / kernel_ms)
 
 
 def contract_case(N: int, M: int, gen, A=None, f=None, label=None) -> dict:
@@ -437,8 +469,11 @@ def phase_kernels(gen, small: bool) -> dict:
 def log_case(name: str, c: dict):
     lib = "" if c["library_ms"] is None else \
         f", library {c['library_ms']:.4f} ms"
+    rate = "" if "bound_share" not in c else \
+        f" ({c['tflop_per_s']:.1f} TFLOP/s, bound share " \
+        f"{c['bound_share']:.3f})"
     log(f"  {name} {c.get('label') or ''} {c['shape']}: kernel "
-        f"{c['kernel_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms"
+        f"{c['kernel_ms']:.4f} ms{rate}, plain {c['plain_ms']:.4f} ms"
         f"{lib}, bound {c['bound_ms']:.5f} ms, err "
         f"{c['max_abs_err']} [{CARD_NAME}]")
 
@@ -1205,6 +1240,9 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
                 library_ms=head["library_ms"],
                 library_note="scaled_dot_product_attention, causal, softcap "
                              "off (and window off)",
+                library_kernel=head["library_kernel"],
+                tflop_per_s=head["tflop_per_s"],
+                bound_share=head["bound_share"],
                 device_us_per_launch=lm.get("profile", {}).get(
                     "flash_attention", {}).get("device_us_per_launch"),
                 cases=cases[name]))
@@ -1262,10 +1300,15 @@ def main(argv=None) -> int:
         record["build_s"] = _build.build_all() if DEV.type == "cuda" \
             else 0.0
         log(f"  built kernels in {record['build_s']:.2f} s")
-        for name, text in _build.build_log.items():
-            regs = [ln.strip() for ln in text.splitlines()
-                    if "registers" in ln or "spill" in ln]
-            log(f"  {name}: " + " | ".join(regs))
+        record["ptxas"] = {name: _build.ptxas_report(name)
+                           for name in _build.build_log}
+        for name, rows in record["ptxas"].items():
+            for r in rows:
+                log(f"  {name}: {r['function']}: {r.get('registers')} "
+                    f"registers, {r.get('stack')} B stack, "
+                    f"{r.get('spill_stores')} / {r.get('spill_loads')} B "
+                    f"spilled (stores / loads), ptxas notes "
+                    f"{r['notes'] or 'none'}")
         gen = torch.Generator(device=DEV).manual_seed(0)
         log("phase 2: kernels against their plain versions")
         cases = phase_kernels(gen, small=args.rehearse)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -91,6 +92,44 @@ def build_all(names=None) -> float:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel function of library ``name``, what ``-Xptxas -v`` said
+    when this process built it: registers, stack and spill bytes, and the
+    codes of ptxas's performance notes (C7514/C7518: wgmma serialized,
+    C7517: a wait injected; C7508: setmaxnreg ignored). Empty when the
+    library was not built in this process."""
+    rows, notes, cur = [], {}, None
+    for ln in build_log.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(function=_short_name(m.group(1)))
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"\((C7\d\d\d)\).*function '([^'\s]+)", ln)
+        if m:
+            notes.setdefault(_short_name(m.group(2)), []).append(m.group(1))
+    for r in rows:
+        r["notes"] = sorted(set(notes.get(r["function"], [])))
+    return rows
+
+
+def _short_name(mangled: str) -> str:
+    """``flash_fwd_kernel<256, 1>`` from its mangled name."""
+    m = re.search(r"\d([a-z_]+kernel)(.*)", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2).split("Ev", 1)[0])
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,10 +14,11 @@ either device, so a run can show which shapes its path gave the kernel.
 Unlike the TPU wrapper, S need not be a multiple of a block: the kernel
 masks keys and rows past S itself.
 
-The kernel reads q, k and v through their strides (only the last dim
-must be contiguous), and writes its output in (B, S, Hq, D) memory order
-returned as a (B, Hq, S, D) view, so the transformer's head merge after
-it is a free reshape.
+The kernel reads q, k and v by TMA through their strides (only the last
+dim must be contiguous; ``_aligned`` copies what TMA cannot read in
+place), and writes its output in (B, S, Hq, D) memory order returned as
+a (B, Hq, S, D) view, so the transformer's head merge after it is a free
+reshape.
 """
 from __future__ import annotations
 
@@ -51,11 +52,13 @@ def _kernel():
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """x itself when the kernel's 16-byte row loads can read it in place
-    (contiguous last dim, other strides multiples of 8 elements, aligned
+    """x itself when the kernel's TMA loads can read it in place (a
+    contiguous last dim; the other strides positive multiples of 8
+    elements, 16 bytes, on every axis longer than 1; a 16-byte aligned
     base), else a contiguous copy."""
-    if x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1]) \
-            and x.data_ptr() % 16 == 0:
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 and (s > 0 or n == 1)
+            for s, n in zip(x.stride()[:-1], x.shape[:-1])):
         return x
     return x.contiguous()
 

@@ -16,7 +16,9 @@ so bf16 results need not be bitwise. Largest seen: 0.0039 (one ulp) for
 ``chunked_attention``; the eager JAX ``attention_ref`` came out bitwise
 equal.
 """
+import ast
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,6 +36,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, chunked_attention, decode_attention_ref, flash_attention,
 )
 from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    kernel_arithmetic,
+)
 from repro_torch.models import transformer as ttfm  # noqa: E402
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -144,3 +149,50 @@ def test_decode_attention_matches_jax(dtype, window, softcap):
         _close(ttfm._decode_attn_dyn_window(tcfg, *t, 13, win),
                jtfm._decode_attn_dyn_window(jcfg, *j, jnp.int32(13),
                                             jnp.int32(win)), tol)
+
+
+# The flash kernel's arithmetic (log2-domain softmax with exp2, the
+# softcap's tanh from exp2 and a reciprocal, the online recurrence over its
+# key tiles, P rounded to bf16) against its plain version, at
+# chip_smoke.py's phase-2 shapes cut to S = 256 (gemma2's local window cut
+# in the same proportion, 4096 of 8192 -> 128 of 256). The inputs are bf16
+# values held in float32, so both outputs are compared before the final
+# bf16 rounding: the arithmetic must stay within half of the smoke's
+# FLASH_TOL, which leaves the other half to that rounding (half a bf16 ulp,
+# 2^-9 relative, on each side).
+KERNEL_CASES = {
+    "gemma2_global": (1, 16, 8, 256, 256, None, 50.0),
+    "gemma2_local": (1, 16, 8, 256, 256, 128, 50.0),
+    "phi3_mini": (1, 32, 32, 256, 96, None, None),
+    "granite_34b": (1, 48, 1, 256, 128, None, None),
+}
+
+
+def _smoke_flash_tol() -> dict:
+    """chip_smoke.py's FLASH_TOL, read without importing the script."""
+    root = Path(__file__).resolve().parents[1]
+    for node in ast.parse((root / "chip_smoke.py").read_text()).body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == "FLASH_TOL":
+            return {kw.arg: ast.literal_eval(kw.value)
+                    for kw in node.value.keywords}
+    raise KeyError("FLASH_TOL")
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_kernel_arithmetic_within_half_the_smoke_gate(name):
+    B, Hq, Hkv, S, D, window, softcap = KERNEL_CASES[name]
+    rng = np.random.default_rng(S + D + Hq)
+    q, k, v = (torch.from_numpy(
+        rng.normal(size=(B, h, S, D)).astype(np.float32) * sc)
+        .bfloat16().float() for h, sc in ((Hq, 2.0), (Hkv, 1.0), (Hkv, 1.0)))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got = kernel_arithmetic(q, k, v, **kw)
+    want = chunked_attention(q, k, v, **kw)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    tol = _smoke_flash_tol()
+    diff = (got - want).abs()
+    share = float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    print(f"{name}: max |diff| {float(diff.max()):.2e}, largest share of "
+          f"the smoke's tolerance {share:.3f}")
+    assert 0 < share <= 0.5

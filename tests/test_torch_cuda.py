@@ -99,7 +99,10 @@ def test_wrappers_raise_on_unsupported_input():
 
 # (B, Hq, Hkv, S, D, causal, window, softcap): gemma2's global and local
 # layers (GQA 16/8, D 256, softcap 50), MHA at D 96, MQA at D 128, S = 1,
-# ragged S, non-causal with and without a window
+# ragged S, non-causal with and without a window; then chip_smoke.py's
+# cases for the kernel's tiling (BQ = 128 query rows, BK = 80 keys at
+# D = 256): a window narrower than a key tile, S one past a query block,
+# Hq = Hkv at D 256 with softcap, D 96 with a window
 FLASH_CASES = [
     (1, 16, 8, 1024, 256, True, None, 50.0),
     (1, 16, 8, 1024, 256, True, 256, 50.0),
@@ -109,6 +112,10 @@ FLASH_CASES = [
     (1, 4, 2, 130, 256, False, None, None),
     (1, 4, 2, 300, 128, False, 50, 20.0),
     (1, 2, 1, 37, 96, True, 8, None),
+    (1, 16, 8, 1000, 256, True, 17, 50.0),
+    (1, 16, 8, 129, 256, True, None, 50.0),
+    (1, 16, 16, 2048, 256, True, None, 50.0),
+    (1, 32, 32, 2048, 96, True, 512, None),
 ]
 # bf16 output: one bf16 ulp is 2^-7 relative (<= 0.0078 below 1, 0.0156 in
 # [2, 4)); the kernel rounds P to bf16 for its P V product where the plain
@@ -138,6 +145,35 @@ def test_flash_kernel_against_chunked(cuda_device, case):
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     want = chunked_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[2]], ids=str)
+def test_flash_kernel_is_deterministic(cuda_device, case):
+    """Two launches on the same inputs give the same bits (no atomics;
+    every sum in one fixed order)."""
+    B, Hq, Hkv, S, D, causal, window, softcap = case
+    q, k, v = _qkv(B, Hq, Hkv, S, D, 11, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    assert torch.equal(flash_ops.flash_attention(q, k, v, **kw),
+                       flash_ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_build_report(cuda_device, tmp_path, monkeypatch):
+    """ptxas's report of a fresh build: every kernel function (D 96, 128,
+    256, with and without softcap) spills nothing, and ptxas neither
+    serialized its wgmma (notes C7514, C7518) nor ignored its setmaxnreg
+    (C7508)."""
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    _build.build_all(["flash_attention"])
+    rows = _build.ptxas_report("flash_attention")
+    assert sorted(r["function"] for r in rows) == sorted(
+        f"flash_fwd_kernel<{d}, {c}>" for d in (96, 128, 256) for c in (0, 1))
+    for r in rows:
+        assert r["spill_stores"] == r["spill_loads"] == r["stack"] == 0, r
+        assert not set(r["notes"]) & {"C7508", "C7514", "C7518"}, r
 
 
 @pytest.mark.cuda

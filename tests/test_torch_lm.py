@@ -41,6 +41,9 @@ from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import transformer_params_from_numpy  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    kernel_arithmetic, kernel_block_k,
+)
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 
@@ -256,14 +259,15 @@ def _smoke_constant(name):
 
 
 def test_kernel_rounding_within_smoke_gates(monkeypatch):
-    """The flash kernel's one numerical difference from its plain version:
-    it rounds the softmax weights P to bf16 for the P V product. Emulated
-    at gemma2-9b's depth (42 layers, local/global pairing, softcaps) and a
-    width the CPU holds (d 512, 4/2 heads of 64, d_ff 1024, vocab 16384,
-    window 128) on a 512-token prompt, that rounding keeps the prefill
-    logits within half of chip_smoke.py's LOGITS_REL_TOL and the greedy
-    tokens above its GREEDY_AGREE_MIN, so those phase-5 gates leave room
-    for a right kernel. ``pytest -s`` prints the reading."""
+    """The flash kernel's numerical differences from its plain version:
+    its exp2 softmax and softcap formula over key tiles, and P rounded to
+    bf16 for the P V product (``ref.kernel_arithmetic``, at gemma2-9b's
+    key tile of 80). Emulated at gemma2-9b's depth (42 layers, local/global
+    pairing, softcaps) and a width the CPU holds (d 512, 4/2 heads of 64,
+    d_ff 1024, vocab 16384, window 128) on a 512-token prompt, they keep
+    the prefill logits within half of chip_smoke.py's LOGITS_REL_TOL and
+    the greedy tokens above its GREEDY_AGREE_MIN, so those phase-5 gates
+    leave room for a right kernel. ``pytest -s`` prints the reading."""
     cfg = dataclasses.replace(
         get_arch("gemma2-9b").cfg, d_model=512, n_heads=4, n_kv_heads=2,
         head_dim=64, d_ff=1024, vocab=16384, local_window=128)
@@ -274,31 +278,20 @@ def test_kernel_rounding_within_smoke_gates(monkeypatch):
     calls = []
 
     def bf16_p(q, k, v, *, causal, window, softcap, backend):
-        """chunked_attention's arithmetic in one chunk, P rounded to bf16
-        before P V as the kernel rounds it."""
+        """The kernel's arithmetic in place of the kernel."""
         assert causal and backend == "cuda"
         calls.append(window)
-        B, Hq, S, D = q.shape
-        Hkv = k.shape[1]
-        qg = q.reshape(B, Hkv, Hq // Hkv, S, D).float()
-        s = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) / D ** 0.5
-        s = softcap * torch.tanh(s / softcap)
-        qpos, kpos = torch.arange(S)[:, None], torch.arange(S)[None]
-        mask = kpos <= qpos
-        if window is not None:
-            mask &= kpos > qpos - window
-        s = torch.where(mask, s, -1e30)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        o = torch.einsum("bkrqs,bksd->bkrqd", p.bfloat16().float(),
-                         v.float())
-        return (o / p.sum(-1, keepdim=True)).to(q.dtype).reshape(q.shape)
+        return kernel_arithmetic(q, k, v, causal=causal, window=window,
+                                 softcap=softcap,
+                                 block_k=kernel_block_k(256))
 
     monkeypatch.setattr(ttfm, "flash_attention", bf16_p)
     got = ttfm.forward(cfg, params, tok)
     assert calls == [ttfm.layer_window(cfg, i) for i in range(42)]
     rel = float((got - ref).abs().max() / ref.abs().max())
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    print(f"bf16 P against plain: max |diff| / max |ref| {rel:.4f}, "
+    print(f"kernel arithmetic against plain: max |diff| / max |ref| "
+          f"{rel:.4f}, "
           f"greedy agreement {agree:.4f}")
     assert 0 < rel < _smoke_constant("LOGITS_REL_TOL") / 2
     assert agree > _smoke_constant("GREEDY_AGREE_MIN")
