@@ -12,17 +12,24 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    serialized wgmma or an ignored setmaxnreg).
 2. Kernels against their plain PyTorch versions on the card, at the
    listed shapes: ``triangle_mp`` must be bitwise equal, ``cycle_intersect``
-   exactly equal, ``flash_attention`` within atol 1e-2 + rtol 1e-2 of
+   exactly equal (each case also gets host µs per call, 1 000 calls then
+   one synchronise, and profiled device µs per call, for the kernel and
+   for ``torch.searchsorted``; then the host µs of each step of its launch
+   path at the main-path head shape, the former wrapper's steps replayed
+   against this one's), ``flash_attention`` within atol 1e-2 + rtol 1e-2 of
    ``chunked_attention`` (bf16 output: about one bf16 ulp) and equal bits
    from two launches, at gemma2-9b's global and local layer shapes
    (S = 8192), phi3-mini's and granite-34b's (S = 4096), a ragged S,
    S = 1, a window narrower than a key tile, S = 129, Hq = Hkv, D = 96
    with a window, and the global shape without softcap (each with its
    TFLOP/s and share of the bound, and the name of the kernel the
-   yardstick ran); ``contract_matmul`` (KᵀAK − diag, two
-   launches) within max |Δ| / max |ref| <= 1e-5 of its plain version at
+   yardstick ran); ``contract_matmul`` (KᵀAK − diag, two product
+   launches and four split passes, 3xTF32 on the tensor cores) within
+   max |Δ| / max |ref| <= 1e-5 of its plain version at
    the five (N, M) shapes of ``tests/test_kernels.py``, the bench shape
-   (2048, 512) and (8192, 2048). Times are CUDA-event medians; the flash
+   (2048, 512) and (8192, 2048), with its TFLOP/s, its share of the
+   3xTF32 bound (the FP32-pipe bound beside it) and its peak device
+   memory. Times are CUDA-event medians; the flash
    cases also time ``scaled_dot_product_attention`` with the softcap (and
    window) off as a yardstick, the contraction cases the same two
    products through cuBLAS SGEMM (``torch.matmul``, TF32 off).
@@ -72,8 +79,8 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    phase of one profiled dense pd solve. (c) Lemma 4 on (b)'s round 0:
    ``contract_matmul(adjacency_dense(inst'), mapping, n_new)`` against
    ``adjacency_dense`` of the contracted instance within 1e-5 of its
-   largest entry, two launches, then the kernel against its plain
-   version and cuBLAS at that shape.
+   largest entry, two product launches and four split passes, then the
+   kernel against its plain version and cuBLAS at that shape.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -91,6 +98,7 @@ The smoke drives one card: it keeps only the first of the visible devices.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -134,12 +142,14 @@ from repro_torch.kernels.triangle_mp.ref import mp_sweep_ref  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12         # H100 SXM TF32 tensor cores, dense
 FLASH_TOL = dict(atol=1e-2, rtol=1e-2)
 LOGITS_REL_TOL = 0.1            # max |diff| / max |ref| of LM logits
 GREEDY_AGREE_MIN = 0.85         # kernel vs plain prefill, random weights
 DECODE_F32_REL_TOL = 1e-4       # decode vs forward, float32, 2 layers
-# contract_matmul vs plain, max |diff| / max |ref|: float32 summed in
-# another order; a TF32 product would sit near 1e-4 and fail it
+# contract_matmul vs plain, max |diff| / max |ref|: 3xTF32 (float32
+# accurate) summed in another order; a single TF32 product would sit near
+# 1e-4 and fail it
 CONTRACT_REL_TOL = 1e-5
 DENSE_REL_TOL = 1e-4            # dense vs sparse objective / lower bound
 CPU_REL_TOL = 1e-5              # card vs CPU objective / lower bound
@@ -319,15 +329,163 @@ def intersect_case(R: int, W: int, Wj: int, gen, ci=None) -> dict:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
 
+    def kernel():
+        isect_ops.intersect_rows(ci, cj)
+
     def library():      # the search half only: no hit test, no -1
         torch.searchsorted(cj, ci, right=True)
 
+    # one call's CUDA-event time on an idle card is mostly host time, so
+    # each side also gets host µs per call (1 000 calls, one synchronise)
+    # and device µs per call (profiled)
     return dict(shape=[[R, W], [R, Wj]], equal=equal, max_abs_err=err,
                 matches=int((got >= 0).sum()),
-                kernel_ms=cuda_ms(lambda: isect_ops.intersect_rows(ci, cj)),
+                kernel_ms=cuda_ms(kernel),
                 plain_ms=cuda_ms(lambda: intersect_rows_ref(ci, cj)),
                 library_ms=cuda_ms(library), bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                host_us=host_us(kernel), device_us=device_us(kernel),
+                library_host_us=host_us(library),
+                library_device_us=device_us(library))
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host microseconds per call of ``fn``: ``n`` calls, then one
+    synchronise (a call whose device work outlasts its host work is
+    timed by the device). A rehearsal makes 3 calls."""
+    if DEV.type != "cuda":
+        n = min(n, 3)
+    sync()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    sync()
+    return (time.perf_counter_ns() - t0) / n / 1e3
+
+
+def device_us(fn, n: int = 20) -> float | None:
+    """Device microseconds per call of ``fn``: the device-side events of
+    ``n`` calls under torch.profiler, summed, over ``n``."""
+    if DEV.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        sync()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / n
+
+
+def launch_breakdown(R: int = 32, W: int = 128, Wj: int = 128,
+                     n: int = 1000) -> dict:
+    """Host microseconds of each step of the ``cycle_intersect`` launch
+    path at the main-path head shape, each step alone over ``n`` calls:
+    ``before`` replays the steps of the former wrapper (a ``torch.cuda.device``
+    context, ``torch.cuda.current_stream``, unconditional ``.to`` /
+    ``.contiguous``, ``torch.empty`` with keywords) around this kernel's
+    entry point, ``after`` the steps of ``isect_ops.intersect_rows``; then
+    the whole calls of both and of ``torch.searchsorted``."""
+    if DEV.type != "cuda":
+        return {}
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    ci = sorted_rows(R, W, 2 * max(W, Wj) + 8, gen)
+    cj = sorted_rows(R, Wj, 2 * max(W, Wj) + 8, gen)
+    isect_ops.intersect_rows(ci, cj)                # binds the entry point
+    launcher = isect_ops._launch
+    index = ci.get_device()
+    # the unpacked entry point: the former wrapper's eight ctypes arguments
+    fn = launcher._lib.cycle_intersect_rows
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(ci)
+    a0, b0, o0 = ci.data_ptr(), cj.data_ptr(), out.data_ptr()
+    counts = Counter()
+
+    def old_checks():
+        if ci.device != cj.device or ci.device.type == "cpu" \
+                or ci.device.type != "cuda":
+            raise AssertionError
+        if ci.dim() != 2 or cj.dim() != 2 or ci.shape[0] != cj.shape[0]:
+            raise AssertionError
+        r, w = ci.shape
+        return r, w, cj.shape[1]
+
+    def old_convert():
+        return (ci.to(torch.int32).contiguous(),
+                cj.to(torch.int32).contiguous())
+
+    def old_context():
+        with torch.cuda.device(ci.device):
+            pass
+
+    def old_stream():
+        return torch.cuda.current_stream(ci.device).cuda_stream
+
+    stream = old_stream()
+
+    def old_call():
+        old_checks()
+        a, b = old_convert()
+        o = torch.empty((R, W), dtype=torch.int32, device=a.device)
+        with torch.cuda.device(a.device):
+            st = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a.data_ptr(), b.data_ptr(), o.data_ptr(), R, W, Wj,
+                    index, st)
+            if rc:
+                raise AssertionError(rc)
+        counts[(R, W, Wj)] += 1
+        return o
+
+    def new_checks():
+        idx = ci.get_device()
+        if idx < 0 or cj.get_device() != idx:
+            raise AssertionError
+        r, w = ci.shape
+        r2, wj = cj.shape
+        if r2 != r:
+            raise AssertionError
+        return r, w, wj
+
+    def counters():
+        counts[(R, W, Wj)] += 1
+
+    steps = {
+        "before": dict(
+            checks=old_checks, to_int32_contiguous=old_convert,
+            empty=lambda: torch.empty((R, W), dtype=torch.int32,
+                                      device=ci.device),
+            device_context=old_context, current_stream=old_stream,
+            ctypes_launch=lambda: fn(a0, b0, o0, R, W, Wj, index, stream),
+            counters=counters),
+        "after": dict(
+            checks=new_checks,
+            int32_check=lambda: (ci.dtype is torch.int32
+                                 and ci.is_contiguous(),
+                                 cj.dtype is torch.int32
+                                 and cj.is_contiguous()),
+            empty_like=lambda: torch.empty_like(ci),
+            raw_stream=lambda: torch._C._cuda_getCurrentRawStream(index),
+            ctypes_launch=lambda: launcher(index, a0, b0, o0, R, W, Wj),
+            counters=counters)}
+    rec = {side: {k: host_us(f, n) for k, f in st.items()}
+           for side, st in steps.items()}
+    rec["before"]["sum"] = sum(rec["before"].values())
+    rec["after"]["sum"] = sum(rec["after"].values())
+    rec["before"]["call"] = host_us(old_call, n)
+    rec["after"]["call"] = host_us(
+        lambda: isect_ops.intersect_rows(ci, cj), n)
+    rec["searchsorted_call"] = host_us(
+        lambda: torch.searchsorted(cj, ci, right=True), n)
+    rec["shape"] = [[R, W], [R, Wj]]
+    return rec
 
 
 def visible_pairs(S: int, window) -> int:
@@ -397,12 +555,22 @@ def contract_case(N: int, M: int, gen, A=None, f=None, label=None) -> dict:
         A = (A + A.T) / 2
         f = torch.randint(0, M, (N,), device=DEV, generator=gen,
                           dtype=torch.int32)
-    n0 = cm_ops.launches
+    n0, s0 = cm_ops.launches, cm_ops.split_launches
+    if DEV.type == "cuda":
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     got = cm_ops.contract_matmul(A, f, M)
+    sync()
+    peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
+    extra = peak - base if DEV.type == "cuda" else 0
     want = contract_matmul_ref(A, f, M)
     sync()
-    check(cm_ops.launches == n0 + 2 * (DEV.type == "cuda"),
-          f"contract_matmul {N, M}: not two launches")
+    on_card = DEV.type == "cuda"
+    check(cm_ops.launches == n0 + 2 * on_card
+          and cm_ops.split_launches == s0 + 4 * on_card,
+          f"contract_matmul {N, M}: not two product launches and four "
+          f"split passes")
     check(got.shape == (M, M) and bool(torch.isfinite(got).all()),
           f"contract_matmul {N, M}: bad output")
     err = float((got - want).abs().max())
@@ -416,7 +584,8 @@ def contract_case(N: int, M: int, gen, A=None, f=None, label=None) -> dict:
     ops = 2 * N * N * M + 2 * M * N * M
     bytes_moved = 4 * N * N + 4 * N + 4 * M * M
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    # the kernel's float32-accurate work is three TF32 products (3xTF32)
+    t_ops = 3 * ops / TF32_OPS_PER_S * 1e3
     reps, warm = (5, 1) if ops > 1e12 else (REPS, 3)
 
     def products():
@@ -427,15 +596,20 @@ def contract_case(N: int, M: int, gen, A=None, f=None, label=None) -> dict:
             torch.matmul(K.T, torch.matmul(A, K))
 
     kernel_ms = cuda_ms(lambda: cm_ops.contract_matmul(A, f, M), reps, warm)
+    bound_ms = max(t_bytes, t_ops)
     return dict(label=label, shape=[N, M], max_abs_err=err, rel_err=rel,
                 kernel_ms=kernel_ms, products_ms=cuda_ms(products, reps,
                                                          warm),
                 plain_ms=cuda_ms(lambda: contract_matmul_ref(A, f, M), reps,
                                  warm),
                 library_ms=cuda_ms(library, reps, warm),
-                bound_ms=max(t_bytes, t_ops),
+                bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                tflop_per_s=ops / kernel_ms / 1e9)
+                fp32_pipe_bound_ms=max(t_bytes,
+                                       ops / FP32_OPS_PER_S * 1e3),
+                bound_share=bound_ms / kernel_ms,
+                tflop_per_s=ops / kernel_ms / 1e9,
+                peak_bytes=peak, scratch_peak_bytes=extra)
 
 
 def phase_kernels(gen, small: bool) -> dict:
@@ -463,6 +637,12 @@ def phase_kernels(gen, small: bool) -> dict:
     for name, rows in cases.items():
         for c in rows:
             log_case(name, c)
+    cases["launch_breakdown"] = launch_breakdown()
+    if cases["launch_breakdown"]:
+        bd = cases["launch_breakdown"]
+        log(f"  cycle_intersect launch path at {bd['shape']}, host us per "
+            f"step: before {bd['before']}, after {bd['after']}, "
+            f"searchsorted call {bd['searchsorted_call']} [{CARD_NAME}]")
     return cases
 
 
@@ -472,10 +652,19 @@ def log_case(name: str, c: dict):
     rate = "" if "bound_share" not in c else \
         f" ({c['tflop_per_s']:.1f} TFLOP/s, bound share " \
         f"{c['bound_share']:.3f})"
+    more = ""
+    if "fp32_pipe_bound_ms" in c:
+        more = (f", FP32-pipe bound {c['fp32_pipe_bound_ms']:.5f} ms, "
+                f"peak {c['peak_bytes']} B (scratch "
+                f"{c['scratch_peak_bytes']} B)")
+    if "host_us" in c:
+        more = (f"; host/device us per call: kernel {c['host_us']:.2f} / "
+                f"{c['device_us']}, searchsorted "
+                f"{c['library_host_us']:.2f} / {c['library_device_us']}")
     log(f"  {name} {c.get('label') or ''} {c['shape']}: kernel "
         f"{c['kernel_ms']:.4f} ms{rate}, plain {c['plain_ms']:.4f} ms"
         f"{lib}, bound {c['bound_ms']:.5f} ms, err "
-        f"{c['max_abs_err']} [{CARD_NAME}]")
+        f"{c['max_abs_err']}{more} [{CARD_NAME}]")
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +675,7 @@ def reset_counters():
     for ops in (sweep_ops, isect_ops, flash_ops, cm_ops):
         ops.launches = 0
         ops.shapes.clear()
+    cm_ops.split_launches = 0
 
 
 def all_launches() -> dict:
@@ -1125,8 +1315,10 @@ def lemma4_round0(inst, gen) -> dict:
     got = cm_ops.contract_matmul(A, res.mapping, n_new)
     sync()
     launches = all_launches()["contract_matmul"]
-    check(DEV.type != "cuda" or launches == 2,
-          f"lemma 4: {launches} contract_matmul launches, want 2")
+    splits = cm_ops.split_launches
+    check(DEV.type != "cuda" or (launches == 2 and splits == 4),
+          f"lemma 4: {launches} contract_matmul launches and {splits} "
+          f"split passes, want 2 and 4")
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     check(err <= CONTRACT_REL_TOL * scale, f"lemma 4: max |KᵀAK - A'| "
@@ -1134,8 +1326,9 @@ def lemma4_round0(inst, gen) -> dict:
     del got, want
     case = contract_case(inst.num_nodes, n_new, gen, A=A, f=res.mapping,
                          label="lemma 4, round 0")
-    # device time of each of the two launches, by CUDA events (a
-    # torch.profiler window here recorded no device events on the card)
+    # time of each of the two products (its two split passes included),
+    # by CUDA events (a torch.profiler window here recorded no device
+    # events on the card)
     K = one_hot(res.mapping, n_new)
     B = cm_ops.matmul(A, K)
     launch_ms = [cuda_ms(lambda: cm_ops.matmul(A, K), 3, 1),
@@ -1143,12 +1336,13 @@ def lemma4_round0(inst, gen) -> dict:
                          1)]
     del K, B
     log(f"  lemma 4 on round 0: {inst.num_nodes} -> {n_new} nodes, max "
-        f"|KᵀAK - A'| {err} of max |A'| {scale}, launches {launches}; "
-        f"device ms per launch {launch_ms}")
+        f"|KᵀAK - A'| {err} of max |A'| {scale}, launches {launches} "
+        f"(+ {splits} split passes); ms per product with its splits "
+        f"{launch_ms}")
     log_case("contract_matmul", case)
     return dict(n_old=inst.num_nodes, n_new=n_new, max_abs_err=err,
-                max_abs_ref=scale, launches=launches, case=case,
-                launch_ms=launch_ms)
+                max_abs_ref=scale, launches=launches, split_launches=splits,
+                case=case, launch_ms=launch_ms)
 
 
 def phase_dense(h: int, w: int, max_neg: int, gen) -> dict:
@@ -1220,9 +1414,17 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
                 shape=head["shape"], ms=head["kernel_ms"],
                 kernel_ms=head["kernel_ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                bound_note="three TF32 tensor-core products (3xTF32) at "
+                           "495 TFLOP/s",
+                fp32_pipe_bound_ms=head["fp32_pipe_bound_ms"],
+                bound_share=head["bound_share"],
+                tflop_per_s=head["tflop_per_s"],
                 library_ms=head["library_ms"],
                 library_note="the same two products through cuBLAS SGEMM "
                              "(torch.matmul, TF32 off), K prebuilt",
+                split_launches=l4["split_launches"],
+                peak_bytes=head["peak_bytes"],
+                scratch_peak_bytes=head["scratch_peak_bytes"],
                 device_us_per_launch=1e3 * statistics.mean(
                     l4["launch_ms"]),
                 cases=every))
@@ -1253,6 +1455,11 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             [[top[0], top[1]], [top[0], top[2]]]
         head = next(c for c in main_cases[name] if c["shape"] == key)
         every = cases[name] + main_cases[name]
+        extra = {} if name == "triangle_mp" else dict(
+            host_us=head["host_us"], device_us=head["device_us"],
+            library_host_us=head["library_host_us"],
+            library_device_us=head["library_device_us"],
+            launch_breakdown=cases["launch_breakdown"])
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=main["launches"][name],
@@ -1265,7 +1472,7 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
                           "torch.searchsorted: the search half only"),
             device_us_per_launch=main.get("profile", {}).get(
                 "kernels", {}).get(name, {}).get("device_us_per_launch"),
-            cases=every))
+            **extra, cases=every))
     return {"kernels": rows}
 
 

@@ -8,6 +8,15 @@ started together). Libraries go under ``build/repro_torch/`` at the repo
 root (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the
 source and flags, so a changed source rebuilds and an unchanged one is
 reused. Nothing here runs at import time.
+
+``Launcher`` is the host path of a launch: a C entry point bound once
+(library loaded and ``argtypes`` set at its first call), then per call the
+raw handle of PyTorch's current stream on the tensors' device and one
+ctypes call with two arguments, the address of the call's integer
+arguments packed as 64-bit words and the stream (ctypes converts each
+argument it is given, so fewer arguments cost less host time); the entry
+point makes the device current only when it is not, so no
+``torch.cuda.device`` context is entered.
 """
 from __future__ import annotations
 
@@ -17,8 +26,11 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -151,3 +163,47 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {rc} "
                            f"({fn(rc).decode(errors='replace')})")
+
+
+class Launcher:
+    """C entry point ``int symbol(const long long* words, void* stream)``
+    of library ``name``: ``words[0]`` is the CUDA device index, the rest
+    the call's integer arguments (pointers as addresses) in order.
+    ``launcher(device_index, *args)`` launches on PyTorch's current stream
+    of that device and raises on a CUDA error. The library is loaded, the
+    ``argtypes`` set and the stream lookup fetched at the first call; each
+    thread packs into its own words."""
+
+    WORDS = 16
+
+    def __init__(self, name: str, symbol: str):
+        self.name, self.symbol = name, symbol
+        self._lib = self._fn = self._stream = None
+        self._local = threading.local()
+
+    def _bind(self):
+        lib = load(self.name)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._lib, self._fn = lib, fn
+        # the raw cudaStream_t of PyTorch's current stream on a device, as
+        # Triton's launcher reads it; CUDA builds of torch only
+        self._stream = torch._C._cuda_getCurrentRawStream
+        return fn
+
+    def __call__(self, index: int, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._bind()
+        local = self._local
+        try:
+            words, addr = local.words, local.addr
+        except AttributeError:
+            words = local.words = (ctypes.c_longlong * self.WORDS)()
+            addr = local.addr = ctypes.addressof(words)
+        words[0] = index
+        words[1:len(args) + 1] = args
+        rc = fn(addr, self._stream(index))
+        if rc:
+            check(self._lib, rc, self.symbol)

@@ -1,18 +1,21 @@
 """Wrapper of the contract_matmul kernel: a float32 ``x @ y`` with float32
-accumulation and an optional zero-diagonal epilogue, and the contraction
+results and an optional zero-diagonal epilogue, and the contraction
 product built from two of its launches.
 
-Routes by the tensors' device: CUDA tensors launch the hand-written kernel
+Routes by the tensors' device: CUDA tensors launch the hand-written kernels
 (``csrc/contract_matmul.cu``) or raise; CPU tensors run the plain version
-(``ref.matmul_ref``). Nothing falls back quietly. ``launches`` counts
-kernel launches and nothing else; ``shapes`` counts the (M, K, N) of each
-nonempty call on either device. Unlike the TPU wrapper there is no tile
-padding: the kernel masks its ragged edges. The kernel reads both inputs
-through their strides, so a transposed view (Kᵀ) costs no copy.
+(``ref.matmul_ref``). Nothing falls back quietly. On the card a product is
+three launches: two split passes write each operand's TF32 hi and lo planes
+(K-major, into scratch from ``torch.empty``), then the product kernel runs
+the three TF32 products on the tensor cores (3xTF32). ``launches`` counts
+product launches only (two per contraction); ``split_launches`` counts the
+split passes; ``shapes`` counts the (M, K, N) of each nonempty call on
+either device. There is no tile padding: the kernels mask their ragged
+edges, and the split reads its operand through its strides, so a
+transposed view (Kᵀ) costs no extra copy.
 """
 from __future__ import annotations
 
-import ctypes
 from collections import Counter
 
 import torch
@@ -21,24 +24,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.contract_matmul.ref import matmul_ref, one_hot
 
 launches = 0
+split_launches = 0
 shapes: Counter = Counter()
-_fn = None
 
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.load("contract_matmul")
-        fn = lib.contract_matmul_sgemm
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = (lib, fn)
-    return _fn
+_split = _build.Launcher("contract_matmul", "contract_matmul_split")
+_product = _build.Launcher("contract_matmul", "contract_matmul_product")
 
 
 def _drop_diagonal(out: torch.Tensor) -> torch.Tensor:
@@ -46,6 +36,20 @@ def _drop_diagonal(out: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(n, device=out.device)
     out[idx, idx] = 0.0
     return out
+
+
+def _planes(a: torch.Tensor, rows: int, K: int, s_row: int,
+            s_k: int) -> torch.Tensor:
+    """(2, rows, Kp) TF32 hi and lo planes of the (rows, K) operand that
+    ``a``'s storage holds at element strides (s_row, s_k); Kp = K rounded
+    up to 4 floats, the pad zeroed."""
+    global split_launches
+    Kp = (K + 3) // 4 * 4
+    planes = torch.empty((2, rows, Kp), dtype=torch.float32, device=a.device)
+    _split(a.device.index, a.data_ptr(), planes.data_ptr(), rows, K, Kp,
+           s_row, s_k)
+    split_launches += 1
+    return planes
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor,
@@ -75,13 +79,10 @@ def matmul(x: torch.Tensor, y: torch.Tensor,
         return out
     if K == 0:
         return out.zero_()
-    lib, fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.check(lib, fn(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                             M, N, K, x.stride(0), x.stride(1),
-                             y.stride(0), y.stride(1), int(drop_diag),
-                             stream), "contract_matmul_sgemm")
+    xp = _planes(x, M, K, x.stride(0), x.stride(1))
+    yp = _planes(y, N, K, y.stride(1), y.stride(0))     # yᵀ, K-major
+    _product(x.device.index, xp.data_ptr(), yp.data_ptr(), out.data_ptr(),
+             M, N, K, xp.shape[2], int(drop_diag))
     launches += 1
     shapes[(M, K, N)] += 1
     return out
@@ -92,7 +93,7 @@ def contract_matmul(A: torch.Tensor, f: torch.Tensor,
     """A: (N, N) adjacency; f: (N,) contraction mapping into [0, n_new).
     Returns the (n_new, n_new) contracted adjacency KᵀAK with a zero
     diagonal, K = one_hot(f): B = A @ K, then Kᵀ @ B with the diagonal
-    dropped in the epilogue — two kernel launches on the card."""
+    dropped in the epilogue — two product launches on the card."""
     K = one_hot(f, n_new, torch.float32)
     B = matmul(A, K)
     return matmul(K.T, B, drop_diag=True)

@@ -11,7 +11,6 @@ the kernel takes any R, W and Wj.
 """
 from __future__ import annotations
 
-import ctypes
 from collections import Counter
 
 import torch
@@ -21,20 +20,7 @@ from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref
 
 launches = 0
 shapes: Counter = Counter()
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.load("cycle_intersect")
-        fn = lib.cycle_intersect_rows
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = (lib, fn)
-    return _fn
+_launch = _build.Launcher("cycle_intersect", "cycle_intersect_launch")
 
 
 def intersect_rows(ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
@@ -42,30 +28,38 @@ def intersect_rows(ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
     (ci == cj == N) still match, as in the reference; callers mask them by
     window validity."""
     global launches
-    if ci.device != cj.device:
-        raise ValueError(f"intersect_rows: ci on {ci.device}, cj on "
-                         f"{cj.device}")
-    if ci.device.type == "cpu":
+    index = ci.get_device()                 # -1: not a CUDA tensor
+    if index < 0:
+        dev = ci.device
+        if dev != cj.device:
+            raise ValueError(f"intersect_rows: ci on {dev}, cj on "
+                             f"{cj.device}")
+        if dev.type != "cpu":
+            raise ValueError(f"intersect_rows: unsupported device {dev}")
         if ci.numel() and cj.numel():
             shapes[(ci.shape[0], ci.shape[1], cj.shape[1])] += 1
         return intersect_rows_ref(ci, cj)
-    if ci.device.type != "cuda":
-        raise ValueError(f"intersect_rows: unsupported device {ci.device}")
-    if ci.dim() != 2 or cj.dim() != 2 or ci.shape[0] != cj.shape[0]:
+    # the CUDA route: every check is a cheap attribute read, since at the
+    # solver's shapes the host time of this call is its cost
+    if cj.get_device() != index:
+        raise ValueError(f"intersect_rows: ci on {ci.device}, cj on "
+                         f"{cj.device}")
+    try:
+        R, W = ci.shape
+        R2, Wj = cj.shape
+    except ValueError:
+        R2 = None
+    if R2 is None or R2 != R:
         raise ValueError(f"intersect_rows: need (R, W) and (R, Wj), got "
                          f"{tuple(ci.shape)} and {tuple(cj.shape)}")
-    R, W = ci.shape
-    Wj = cj.shape[1]
     if R == 0 or W == 0 or Wj == 0:
         return torch.full((R, W), -1, dtype=torch.int32, device=ci.device)
-    a = ci.to(torch.int32).contiguous()
-    b = cj.to(torch.int32).contiguous()
-    out = torch.empty((R, W), dtype=torch.int32, device=ci.device)
-    lib, fn = _kernel()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        _build.check(lib, fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                             R, W, Wj, stream), "cycle_intersect_rows")
+    if ci.dtype is not torch.int32 or not ci.is_contiguous():
+        ci = ci.to(torch.int32).contiguous()
+    if cj.dtype is not torch.int32 or not cj.is_contiguous():
+        cj = cj.to(torch.int32).contiguous()
+    out = torch.empty_like(ci)
+    _launch(index, ci.data_ptr(), cj.data_ptr(), out.data_ptr(), R, W, Wj)
     launches += 1
     shapes[(R, W, Wj)] += 1
     return out

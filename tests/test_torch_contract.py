@@ -6,7 +6,10 @@ and Lemma 4 itself inside the port.
 The JAX ``contract_matmul`` runs its Pallas kernel in interpret mode on the
 CPU, as ``tests/test_kernels.py`` runs it, at that file's five shapes and
 its tolerance (atol 1e-3). The kernel on the card is held to the same
-plain version in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+plain version in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; its
+arithmetic (3xTF32: the TF32 hi/lo split and three tensor-core products)
+is emulated here on the CPU by ``ref.matmul_3xtf32`` and held to the same
+gate.
 """
 import numpy as np
 import pytest
@@ -23,10 +26,14 @@ from repro_torch.convert import instance_from_numpy  # noqa: E402
 from repro_torch.core import contraction as tct  # noqa: E402
 from repro_torch.kernels.contract_matmul import ops as cm_ops  # noqa: E402
 from repro_torch.kernels.contract_matmul.ref import (  # noqa: E402
-    contract_matmul_ref, matmul_ref, one_hot,
+    contract_matmul_ref, matmul_3xtf32, matmul_ref, one_hot, split_tf32,
+    tf32_round,
 )
 
 SHAPES = [(8, 3), (64, 17), (256, 256), (300, 77), (513, 100)]
+# the card's gate on contract_matmul, max |diff| / max |ref|
+# (chip_smoke.py's CONTRACT_REL_TOL, tests/test_torch_cuda.py's CM_REL_TOL)
+CONTRACT_REL_TOL = 1e-5
 
 
 def _case(N, M, seed):
@@ -144,3 +151,49 @@ def test_contract_matches_dense_lemma4(seed):
                 cm_ops.contract_matmul(A, res.mapping, n_new)):
         np.testing.assert_allclose(got.numpy()[:n_new, :n_new], B.numpy(),
                                    atol=1e-4)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` keeps 10 mantissa bits, rounds a tie away from zero
+    (as ``cvt.rna.tf32.f32``), carries into the exponent, and passes
+    infinities, NaNs and zeros through."""
+    u = 2.0 ** -10                          # one TF32 ulp at 1.0
+    x = torch.tensor([1.0, 1 + u / 2, 1 + u / 2 - 2 ** -23, 1 + 1.5 * u,
+                      -(1 + u / 2), 2 - u / 2, 0.0, -0.0, float("inf"),
+                      -float("inf"), 3.0e38], dtype=torch.float32)
+    want = [1.0, 1 + u, 1.0, 1 + 2 * u, -(1 + u), 2.0, 0.0, -0.0,
+            float("inf"), -float("inf")]
+    got = tf32_round(x)
+    assert got[:10].tolist() == want
+    assert torch.signbit(got[7])
+    assert int(got[10:].view(torch.int32)) & 0x1FFF == 0
+    assert torch.isnan(tf32_round(torch.tensor([float("nan")]))).all()
+    # hi + lo keeps ~22 bits of x
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    hi, lo = split_tf32(v)
+    assert torch.equal(tf32_round(hi), hi) and torch.equal(tf32_round(lo), lo)
+    assert float(((v - hi - lo).abs() / v.abs()).max()) <= 2.0 ** -21
+
+
+def _contract_with(mm, A, f, M):
+    """``ops.contract_matmul``'s two products, each through ``mm``."""
+    K = one_hot(f, M, torch.float32)
+    out = mm(K.T, mm(A, K))
+    out.fill_diagonal_(0.0)
+    return out
+
+
+@pytest.mark.parametrize("N,M", SHAPES + [(2048, 512)])
+def test_3xtf32_contraction_within_half_the_gate(N, M):
+    """The kernel's arithmetic (3xTF32), emulated on the CPU, stays within
+    half of the card's 1e-5 gate of the plain float32 contraction; a single
+    TF32 pass (hi·hi only) on the same inputs exceeds the gate, so the gate
+    tells the two apart."""
+    A, f = _case(N, M, N * 1000 + M)
+    A, f = torch.from_numpy(A), torch.from_numpy(f)
+    want = cm_ops.contract_matmul(A, f, M)      # the CPU: matmul_ref
+    got = _contract_with(matmul_3xtf32, A, f, M)
+    assert _rel(got, want) <= CONTRACT_REL_TOL / 2
+    one = _contract_with(lambda x, y: matmul_3xtf32(x, y, passes=1), A, f, M)
+    assert _rel(one, want) > CONTRACT_REL_TOL

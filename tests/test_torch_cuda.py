@@ -78,6 +78,24 @@ def test_intersect_kernel_empty_rows_and_fan(cuda_device):
                        intersect_rows_ref(fan, rows))
 
 
+@pytest.mark.cuda
+def test_intersect_kernel_on_a_side_stream(cuda_device):
+    """The launch goes to PyTorch's current stream: under
+    ``torch.cuda.stream(s)`` the result is right once ``s`` is
+    synchronised, and the call counts one launch."""
+    ci = _sorted_rows(1, 32, 128, 200).to(cuda_device)
+    cj = _sorted_rows(2, 32, 128, 200).to(cuda_device)
+    want = intersect_rows_ref(ci, cj)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream(device=cuda_device)
+    n0 = isect_ops.launches
+    with torch.cuda.stream(s):
+        got = isect_ops.intersect_rows(ci, cj)
+    s.synchronize()
+    assert isect_ops.launches == n0 + 1
+    assert torch.equal(got, want)
+
+
 def test_wrappers_raise_on_unsupported_input():
     """A CUDA tensor launches the kernel or raises — never falls back;
     other devices raise."""
@@ -225,9 +243,10 @@ def test_flash_wrapper_raises_without_a_kernel_route():
         flash_ops.flash_attention(torch.zeros((1, 3, 8, 16)), kv2, kv2)
 
 
-# contract_matmul: float32 on the FP32 pipes, summed in k order with fused
-# multiply-adds where cuBLAS sums in its own order; a TF32 product would sit
-# near 1e-4 of max |ref| and fail this gate
+# contract_matmul: 3xTF32 on the tensor cores (lo·hi + hi·lo + hi·hi of the
+# operands' TF32 splits, float32 accumulation), summed in another order than
+# cuBLAS's full-float32 product; a single TF32 product would sit near 1e-4
+# of max |ref| and fail this gate
 CM_REL_TOL = 1e-5
 
 
@@ -244,22 +263,59 @@ def test_contract_matmul_kernel_against_plain(cuda_device, N, M):
     A = torch.from_numpy((A + A.T) / 2).to(cuda_device)
     f = torch.from_numpy(rng.integers(0, M, N).astype(np.int32)) \
         .to(cuda_device)
-    n0 = cm_ops.launches
+    n0, s0 = cm_ops.launches, cm_ops.split_launches
     got = cm_ops.contract_matmul(A, f, M)
     torch.cuda.synchronize()
     assert cm_ops.launches == n0 + 2
+    assert cm_ops.split_launches == s0 + 4
     want = contract_matmul_ref(A, f, M)
     assert got.shape == (M, M) and not bool(got.diagonal().any())
     assert _rel(got, want) <= CM_REL_TOL
 
 
 @pytest.mark.cuda
+def test_contract_matmul_kernel_is_deterministic(cuda_device):
+    """Two launches on the same inputs give the same bits (no split-K, no
+    atomics: each output element is summed in one fixed order)."""
+    rng = np.random.default_rng(9)
+    A = torch.from_numpy(rng.normal(size=(2048, 2048)).astype(np.float32)) \
+        .to(cuda_device)
+    f = torch.from_numpy(rng.integers(0, 512, 2048).astype(np.int32)) \
+        .to(cuda_device)
+    assert torch.equal(cm_ops.contract_matmul(A, f, 512),
+                       cm_ops.contract_matmul(A, f, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,functions", [
+    ("contract_matmul", ["contract_product_kernel", "contract_split_kernel"]),
+    ("cycle_intersect", ["cycle_intersect_kernel<0, 0>",
+                         "cycle_intersect_kernel<1, 0>",
+                         "cycle_intersect_kernel<1, 1>"])])
+def test_kernel_build_report(cuda_device, tmp_path, monkeypatch, name,
+                             functions):
+    """ptxas's report of a fresh build of the redesigned kernels: every
+    function spills nothing, and ptxas neither serialized a wgmma (notes
+    C7514, C7518) nor ignored a setmaxnreg (C7508)."""
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    _build.build_all([name])
+    rows = _build.ptxas_report(name)
+    assert sorted(r["function"] for r in rows) == sorted(functions)
+    for r in rows:
+        assert r["spill_stores"] == r["spill_loads"] == r["stack"] == 0, r
+        assert not set(r["notes"]) & {"C7508", "C7514", "C7518"}, r
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(1, 1, 1), (7, 13, 5), (129, 9, 130),
-                                   (300, 1000, 77), (128, 256, 384)])
+                                   (300, 1000, 77), (128, 256, 384),
+                                   (129, 64, 129), (257, 1023, 130)])
 def test_matmul_kernel_strides_tails_and_diagonal(cuda_device, M, K, N):
-    """Ragged M, N and K; inputs read through transposed strides give the
-    same bits as contiguous copies; the epilogue zeroes exactly the global
-    diagonal."""
+    """Ragged M, N and K (K = 13 and 1023 are not multiples of 4, the
+    planes' row pitch; 129 and 257 are one past a 128-row or -column
+    tile); inputs read through transposed strides give the same bits as
+    contiguous copies; the epilogue zeroes exactly the global diagonal."""
     rng = np.random.default_rng(M + K + N)
     x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)) \
         .to(cuda_device)
