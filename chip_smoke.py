@@ -11,7 +11,14 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    each kernel function (registers, stack and spill bytes, its notes on
    serialized wgmma or an ignored setmaxnreg).
 2. Kernels against their plain PyTorch versions on the card, at the
-   listed shapes: ``triangle_mp`` must be bitwise equal, ``cycle_intersect``
+   listed shapes: ``triangle_mp`` must be bitwise equal (the sweep alone
+   at T = 2^20 and 1 000 003, with its profiled device µs with its inputs
+   flushed from L2 and its share of the bytes bound; the fused MP phase,
+   t_cost, c_rep and lower bound, at the solver's T = 1 024 and 2 048
+   with few valid rows, a ragged T and T = 2^20, with its launches, the
+   profiled device µs of its kernels and of the whole call, and the
+   kernels' bound from the reads and writes these inputs need),
+   ``cycle_intersect``
    exactly equal (each case also gets host µs per call, 1 000 calls then
    one synchronise, and profiled device µs per call, for the kernel and
    for ``torch.searchsorted``; then the host µs of each step of its launch
@@ -36,13 +43,17 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
 3. The main path at full size: ``api.solve`` with the default preset on
    ``grid_instance(512, 1024)`` (524 288 nodes, 2 609 161 edges), through
    both hand kernels (their launch counters are zeroed just before and read
-   just after), then the same solve with ``backend="reference"``: labels,
+   just after: one ``triangle_mp`` launch for each MP phase of T <= 2 048,
+   and no call of the per-edge MP sums), then the same solve with
+   ``backend="reference"`` (the per-edge MP layout): labels,
    rounds, histories, objective and lower bound must be equal. Checks the
    lower bound ≤ objective, the labels form a partition, and the objective
    against a float64 recount on the host. Prints wall time (median of 3
-   after a warm-up), rounds, host syncs per solve and peak memory; then
-   holds each kernel against its plain version at every shape the main
-   path gave it.
+   after a warm-up), rounds, host syncs per solve (none may come from
+   ``segment_plan``) and peak memory, and a profiled solve's phases (each
+   ``repro.*`` range's host ms, its span on the device, and the device
+   time of the kernels launched inside it); then holds each kernel
+   against its plain version at every shape the main path gave it.
 4. Card against CPU: ``grid_instance(96, 96, seed=1)`` solved on both.
    Labels must be equal and objective / lower bound within 1e-5 relative;
    if the labels differ, the first round where the runs part is printed.
@@ -98,6 +109,7 @@ The smoke drives one card: it keeps only the first of the visible devices.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -137,7 +149,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref  # noqa: E402,E501
 from repro_torch.kernels.triangle_mp import ops as sweep_ops  # noqa: E402
-from repro_torch.kernels.triangle_mp.ref import mp_sweep_ref  # noqa: E402
+from repro_torch.kernels.triangle_mp.ref import (  # noqa: E402
+    mp_phase_ref, mp_plan, mp_sweep_ref,
+)
+from repro_torch.sparse import segment_ops  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -154,6 +169,10 @@ CONTRACT_REL_TOL = 1e-5
 DENSE_REL_TOL = 1e-4            # dense vs sparse objective / lower bound
 CPU_REL_TOL = 1e-5              # card vs CPU objective / lower bound
 SWEEP_FLOPS = 50                # per triangle: 6 steps x ~8 ops
+MP_ITERS = 5                    # SolverConfig().mp_iters
+# the fused MP phase's kernels; the sweep alone is triangle_mp_sweep_kernel
+PHASE_SYMBOLS = ("triangle_mp_phase_kernel", "triangle_mp_pass_kernel",
+                 "triangle_mp_land_kernel")
 REPS = 20
 DEV = torch.device("cuda")      # --rehearse switches to the CPU
 CARD_NAME = "rehearsal on the CPU"  # nvidia-smi's name and power limit
@@ -165,6 +184,18 @@ CONTRACT_CASES = {
              (2048, 512), (8192, 2048)],
     "rehearse": [(8, 3), (64, 17), (256, 256), (300, 77), (513, 100)]}
 DENSE_GRID = {"card": (128, 128), "rehearse": (20, 20)}
+# phase 2 MP phase cases (T, E, valid rows, label): the solver's T with
+# few valid rows (one block), a ragged T, and mp_sweep_1m's T = 2^20 (a
+# launch per pass)
+PHASE_CASES = {
+    "card": [(1024, 2_610_185, 128, "T 1024, few valid"),
+             (2048, 2_610_185, 256, "T 2048, few valid"),
+             (1999, 100_000, 1500, "ragged T"),
+             (1 << 20, 1 << 22, 1 << 20, "T 2^20, all valid")],
+    "rehearse": [(1024, 5000, 128, "T 1024, few valid"),
+                 (2048, 5000, 256, "T 2048, few valid"),
+                 (1999, 5000, 1500, "ragged T"),
+                 (4099, 20000, 4099, "T 4099, all valid")]}
 PORT = str(ROOT / "src" / "repro_torch")
 
 KERNELS = {
@@ -274,27 +305,121 @@ def cuda_ms(fn, reps=REPS, warmup=3) -> float:
 # Kernel checks and timings
 # ---------------------------------------------------------------------------
 
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def sweep_case(T: int, gen) -> dict:
+    """The sweep alone (the TPU kernel's direct counterpart) against its
+    plain version, bitwise; its device µs by profile and share of its
+    bytes bound."""
     x = torch.randn(T, 3, device=DEV, generator=gen) * 3.0
     n0 = sweep_ops.launches
     got = sweep_ops.mp_sweep(x)
     want = mp_sweep_ref(x)
     sync()
     check(sweep_ops.launches == n0 + (DEV.type == "cuda"),
-          f"triangle_mp T={T}: no launch")
+          f"triangle_mp sweep T={T}: no launch")
     bitwise = bool(torch.equal(got.view(torch.int32),
                                want.view(torch.int32)))
     err = float((got - want).abs().max()) if T else 0.0
-    check(bitwise, f"triangle_mp T={T}: not bitwise equal (max err {err})")
-    bytes_moved = 24 * T
-    ops = SWEEP_FLOPS * T
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return dict(shape=[T, 3], bitwise=bitwise, max_abs_err=err,
-                kernel_ms=cuda_ms(lambda: sweep_ops.mp_sweep(x)),
+    check(bitwise, f"triangle_mp sweep T={T}: not bitwise equal (max err "
+          f"{err})")
+    bound_ms, by = bound(24 * T, SWEEP_FLOPS * T)
+
+    def call():
+        return sweep_ops.mp_sweep(x)
+    sym = ("triangle_mp_sweep_kernel",)
+    dev_us = device_us(call, symbols=sym, flush=True)
+    warm_us = device_us(call, symbols=sym)
+    return dict(label="sweep", shape=[T, 3], bitwise=bitwise,
+                max_abs_err=err, kernel_ms=cuda_ms(call),
                 plain_ms=cuda_ms(lambda: mp_sweep_ref(x)),
-                library_ms=None, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                device_us=dev_us, l2_warm_device_us=warm_us,
+                library_ms=None, bound_ms=bound_ms, bound_by=by,
+                bound_share=(bound_ms * 1e3 / dev_us if dev_us else None))
+
+
+def phase_inputs(T: int, E: int, n_valid: int, gen):
+    """A synthetic MP phase: ``n_valid`` valid rows spread over T, their
+    edge ids drawn from a pool of 1.5 ids a valid triangle (so edges are
+    shared by several triangles), invalid rows zeroed; random costs over
+    E edges, one in 16 invalid."""
+    pool = torch.randperm(E, generator=gen, device=DEV)[
+        :max(3, 3 * n_valid // 2)].to(torch.int32)
+    tri = pool[torch.randint(0, pool.numel(), (T, 3), generator=gen,
+                             device=DEV)]
+    valid = torch.zeros(T, dtype=torch.bool, device=DEV)
+    valid[torch.randperm(T, generator=gen, device=DEV)[:n_valid]] = True
+    tri = torch.where(valid[:, None], tri, torch.zeros_like(tri))
+    cost = torch.randn(E, generator=gen, device=DEV) * 3.0
+    ev = torch.rand(E, generator=gen, device=DEV) >= 1 / 16
+    return cost, ev, tri, valid
+
+
+def phase_work(cost, tri, valid, iters: int) -> tuple[int, int]:
+    """Bytes and float ops the phase kernel needs on these inputs: the
+    row flags, the valid rows' edge ids, the sorted keys and entries of
+    their slots and the touched edges' costs read once, the valid rows'
+    costs and the touched edges' c_rep written once; each pass a slot
+    adds its segment's entries (+3: c + Σ, / deg, + t) and the sweep
+    takes ~50, the landing adds each segment once more."""
+    plan = mp_plan(cost, tri, valid)
+    nv = int(valid.sum())
+    seg = plan.length[plan.length > 0].long()
+    U = int(seg.numel())
+    slot_adds = int((seg * seg).sum())      # Σ over valid slots of deg
+    T = tri.shape[0]
+    bytes_moved = T + 12 * nv + 3 * nv * (4 + 8) + 4 * U + 12 * nv + 4 * U
+    ops = iters * (slot_adds + 9 * nv + SWEEP_FLOPS * nv) \
+        + int(seg.sum()) + U
+    return bytes_moved, ops
+
+
+def phase_case(T: int, E: int, n_valid: int, gen, label: str,
+               iters: int = MP_ITERS) -> dict:
+    """The fused MP phase (``mp_phase``) against ``mp_phase_ref`` on the
+    same inputs: t_cost, c_rep and lb bitwise equal; its launches; kernel
+    ms of the whole call (plan, kernel, landing buffer, lower bound) and
+    of the plain version; profiled device µs of the phase kernels per
+    call and of the whole call; the kernels' bound from the plan's reads
+    and writes."""
+    cost, ev, tri, valid = phase_inputs(T, E, n_valid, gen)
+    fused = T <= sweep_ops.FUSED_MAX_T
+    want_launches = (1 if fused else iters + 1) * (DEV.type == "cuda")
+    n0 = sweep_ops.launches
+    got = sweep_ops.mp_phase(cost, ev, tri, valid, iters)
+    want = mp_phase_ref(cost, ev, tri, valid, iters)
+    sync()
+    check(sweep_ops.launches == n0 + want_launches,
+          f"triangle_mp phase T={T}: {sweep_ops.launches - n0} launches, "
+          f"want {want_launches}")
+    same = [torch.equal(g.view(torch.int32), w.view(torch.int32))
+            for g, w in zip(got, want)]
+    err = max(float((g - w).abs().max()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    check(all(same), f"triangle_mp phase T={T}: (t_cost, c_rep, lb) "
+          f"bitwise equal {same} (max err {err})")
+    bytes_moved, ops = phase_work(cost, tri, valid, iters)
+    bound_ms, by = bound(bytes_moved, ops)
+
+    def call():
+        return sweep_ops.mp_phase(cost, ev, tri, valid, iters)
+    kernel_us = device_us(call, symbols=PHASE_SYMBOLS)
+    return dict(label=label, shape=[T, 3], edges=E, n_valid=n_valid,
+                iters=iters, route="one launch" if fused else
+                "a launch per pass + landing", launches=want_launches,
+                bitwise=all(same), max_abs_err=err,
+                kernel_ms=cuda_ms(call),
+                plain_ms=cuda_ms(lambda: mp_phase_ref(cost, ev, tri, valid,
+                                                      iters)),
+                device_us=kernel_us, call_device_us=device_us(call),
+                library_ms=None, bound_ms=bound_ms, bound_by=by,
+                bound_share=(bound_ms * 1e3 / kernel_us if kernel_us
+                             else None))
 
 
 def sorted_rows(R: int, W: int, n: int, gen) -> torch.Tensor:
@@ -363,22 +488,33 @@ def host_us(fn, n: int = 1000) -> float:
     return (time.perf_counter_ns() - t0) / n / 1e3
 
 
-def device_us(fn, n: int = 20) -> float | None:
+def device_us(fn, n: int = 20, symbols=None,
+              flush: bool = False) -> float | None:
     """Device microseconds per call of ``fn``: the device-side events of
-    ``n`` calls under torch.profiler, summed, over ``n``."""
+    ``n`` calls under torch.profiler (those of kernels whose name holds
+    one of ``symbols``, if given), summed, over ``n``. ``flush`` writes a
+    128 MB buffer before each call, so the call finds its inputs in
+    device memory and not in L2 (pass ``symbols`` with it, or the flush
+    is counted too)."""
     if DEV.type != "cuda":
         return None
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    # larger than the card's 50 MB L2; freed on return, so it is in no
+    # later peak-memory reading
+    junk = torch.empty(1 << 25 if flush else 0, device=DEV)
     fn()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if flush:
+                junk.zero_()
             fn()
         sync()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+             if e.device_type == DeviceType.CUDA and
+             (symbols is None or any(k in e.key for k in symbols)))
     return us / n
 
 
@@ -618,6 +754,9 @@ def phase_kernels(gen, small: bool) -> dict:
     big = 65536 if not small else 512
     for T in ((1 << 20, 1_000_003) if not small else (4096, 4099)):
         cases["triangle_mp"].append(sweep_case(T, gen))
+    for T, E, n_valid, label in PHASE_CASES["rehearse" if small
+                                            else "card"]:
+        cases["triangle_mp"].append(phase_case(T, E, n_valid, gen, label))
     for R, W, Wj in [(256, 16, 16), (256, 128, 128), (1024, 128, 128),
                      (1024, 4, 128), (300, 37, 129), (big, 128, 128),
                      (9, 1, 1), (8, 1, 20000)]:
@@ -649,7 +788,7 @@ def phase_kernels(gen, small: bool) -> dict:
 def log_case(name: str, c: dict):
     lib = "" if c["library_ms"] is None else \
         f", library {c['library_ms']:.4f} ms"
-    rate = "" if "bound_share" not in c else \
+    rate = "" if "tflop_per_s" not in c else \
         f" ({c['tflop_per_s']:.1f} TFLOP/s, bound share " \
         f"{c['bound_share']:.3f})"
     more = ""
@@ -661,6 +800,16 @@ def log_case(name: str, c: dict):
         more = (f"; host/device us per call: kernel {c['host_us']:.2f} / "
                 f"{c['device_us']}, searchsorted "
                 f"{c['library_host_us']:.2f} / {c['library_device_us']}")
+    elif "device_us" in c:
+        more = (f"; profiled device us per call {c['device_us']}, share of "
+                f"bound {c['bound_share']}")
+        if "l2_warm_device_us" in c:
+            more += (f" (inputs flushed from L2; {c['l2_warm_device_us']} us "
+                     f"with them in L2)")
+        if "call_device_us" in c:
+            more += (f"; {c['launches']} launches ({c['route']}), "
+                     f"{c['n_valid']} valid rows, E {c['edges']}, whole "
+                     f"call {c['call_device_us']} device us")
     log(f"  {name} {c.get('label') or ''} {c['shape']}: kernel "
         f"{c['kernel_ms']:.4f} ms{rate}, plain {c['plain_ms']:.4f} ms"
         f"{lib}, bound {c['bound_ms']:.5f} ms, err "
@@ -683,6 +832,29 @@ def all_launches() -> dict:
             "cycle_intersect": isect_ops.launches,
             "flash_attention": flash_ops.launches,
             "contract_matmul": cm_ops.launches}
+
+
+def phase_launches(shapes: dict, iters: int = MP_ITERS) -> int:
+    """triangle_mp launches that MP phases of these T counts make."""
+    return sum(n * (1 if T <= sweep_ops.FUSED_MAX_T else iters + 1)
+               for T, n in shapes.items())
+
+
+@contextlib.contextmanager
+def count_calls(module, name: str):
+    """Count calls of ``module.name`` made through the module's attribute
+    while the block runs; yields a one-element list holding the count."""
+    fn = getattr(module, name)
+    count = [0]
+
+    def counted(*a, **kw):
+        count[0] += 1
+        return fn(*a, **kw)
+    setattr(module, name, counted)
+    try:
+        yield count
+    finally:
+        setattr(module, name, fn)
 
 
 def timed_solve(inst, **kw):
@@ -762,7 +934,10 @@ def profile_solve(inst, **kw) -> dict:
     """One solve (the main path's unless ``kw`` says otherwise) under
     torch.profiler: device busy time (the sum of the device-side kernel and
     copy events), each round phase's host and device milliseconds (the
-    solver's ``repro.*`` ranges, summed over rounds), device time per
+    solver's ``repro.*`` ranges, summed over rounds: ``device_ms`` is the
+    range's span on the device, which also covers idle gaps and earlier
+    work still running; ``device_busy_ms`` sums the device time of the
+    kernels and copies launched inside the range), device time per
     launch of each hand kernel, and the kernels that take the most device
     time."""
     if DEV.type != "cuda":
@@ -783,17 +958,22 @@ def profile_solve(inst, **kw) -> dict:
         if e.key.startswith("repro."):
             side = "device_ms" if e.device_type == DeviceType.CUDA \
                 else "host_ms"
-            ph = phases.setdefault(e.key, {"host_ms": 0.0, "device_ms": 0.0})
+            ph = phases.setdefault(e.key, {"host_ms": 0.0, "device_ms": 0.0,
+                                           "device_busy_ms": 0.0})
             ph[side] += dur / 1e3
+            if side == "host_ms":       # kernels launched inside the range
+                ph["device_busy_ms"] += e.device_time_total / 1e3
         elif e.device_type == DeviceType.CUDA:
             n, us = by_kernel.get(e.key, (0, 0.0))
             by_kernel[e.key] = (n + 1, us + dur)
     busy_us = sum(us for _, us in by_kernel.values())
     kern = {}
-    for name, sym in (("triangle_mp", "triangle_mp_sweep_kernel"),
-                      ("cycle_intersect", "cycle_intersect_kernel")):
-        n = sum(c for k, (c, _) in by_kernel.items() if sym in k)
-        us = sum(t for k, (_, t) in by_kernel.items() if sym in k)
+    for name, syms in (("triangle_mp", PHASE_SYMBOLS),
+                       ("cycle_intersect", ("cycle_intersect_kernel",))):
+        mine = [v for k, v in by_kernel.items()
+                if any(sym in k for sym in syms)]
+        n = sum(c for c, _ in mine)
+        us = sum(t for _, t in mine)
         kern[name] = dict(launches=n, device_us_total=us,
                           device_us_per_launch=us / n if n else None)
     top = sorted(by_kernel.items(), key=lambda kv: kv[1][1],
@@ -826,7 +1006,8 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
     if DEV.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    res, first_s = timed_solve(inst)                 # the main path
+    with count_calls(segment_ops, "sequential_sums") as per_edge:
+        res, first_s = timed_solve(inst)             # the main path
     launches = all_launches()
     check(launches.pop("flash_attention") == 0
           and launches.pop("contract_matmul") == 0,
@@ -835,15 +1016,25 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
                    "cycle_intersect": dict(isect_ops.shapes)}
     peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
     log(f"  default solve: {first_s:.3f} s (first call), launches "
-        f"{launches}")
+        f"{launches}, MP phases {sum(main_shapes['triangle_mp'].values())}"
+        f", per-edge MP sums {per_edge[0]}")
     check(DEV.type != "cuda" or all(n > 0 for n in launches.values()),
           f"main path did not launch every kernel: {launches}")
+    want = phase_launches(main_shapes["triangle_mp"])
+    check(DEV.type != "cuda" or launches["triangle_mp"] == want,
+          f"main path: {launches['triangle_mp']} triangle_mp launches, "
+          f"want {want} for its MP phases {main_shapes['triangle_mp']}")
+    check(per_edge[0] == 0, f"the kernel solve ran the per-edge MP sums "
+          f"{per_edge[0]} times")
     r = host(res)
 
     reset_counters()
-    ref, ref_s = timed_solve(inst, backend="reference")
+    with count_calls(segment_ops, "sequential_sums") as per_edge_ref:
+        ref, ref_s = timed_solve(inst, backend="reference")
     check(sweep_ops.launches == 0 and isect_ops.launches == 0,
           "backend='reference' launched a kernel")
+    check(per_edge_ref[0] > 0, "backend='reference' did not run the "
+          "per-edge MP")
     rr = host(ref)
     diff = same_result(r, rr)
     check(not diff, f"kernel solve != reference solve in {diff}")
@@ -852,6 +1043,8 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
     walls = [timed_solve(inst)[1] for _ in range(3)]
     sync_sites = count_syncs(lambda: api.solve(inst, device=DEV))
     syncs = sum(sync_sites.values())
+    check("segment_ops.py:segment_plan" not in sync_sites,
+          f"the main path still syncs in segment_plan: {sync_sites}")
     prof = profile_solve(inst)
     out = dict(
         instance=dict(h=h, w=w, nodes=inst.num_nodes, edges=E,
@@ -1235,6 +1428,7 @@ def phase_quickstart() -> dict:
         reset_counters()
         kern = host(api.solve(inst, mode=mode, config=cfg, device=DEV))
         launches = all_launches()
+        mp_shapes = dict(sweep_ops.shapes)
         ref = host(api.solve(inst, mode=mode, config=cfg,
                              backend="reference", device=DEV))
         diff = same_result(kern, ref)
@@ -1249,10 +1443,12 @@ def phase_quickstart() -> dict:
             check(rel_close(kern[f], cpu[f], CPU_REL_TOL),
                   f"quickstart {mode}: card {f} {kern[f]} vs CPU {cpu[f]}")
         if DEV.type == "cuda":
-            want = 0 if mode == "p" else 1
-            check(launches["triangle_mp"] >= want
+            want = phase_launches(mp_shapes, cfg.mp_iters)
+            check(launches["triangle_mp"] == want
+                  and (want > 0) == (mode != "p")
                   and launches["cycle_intersect"] == 0,
-                  f"quickstart {mode} (dense): launched {launches}")
+                  f"quickstart {mode} (dense): launched {launches}, MP "
+                  f"phases {mp_shapes}")
         out[mode] = dict(rounds=int(kern["rounds"]),
                          objective=float(kern["objective"]),
                          lower_bound=float(kern["lower_bound"]),
@@ -1275,6 +1471,7 @@ def dense_run(inst, mode: str, impl: str) -> tuple[dict, dict]:
     reset_counters()
     res, first_s = timed_solve(inst, mode=mode, graph_impl=impl)
     launches = all_launches()
+    mp_shapes = dict(sweep_ops.shapes)
     peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
     walls = [timed_solve(inst, mode=mode, graph_impl=impl)[1]
              for _ in range(3)]
@@ -1288,7 +1485,9 @@ def dense_run(inst, mode: str, impl: str) -> tuple[dict, dict]:
                wall_s_median=statistics.median(walls),
                host_syncs=sum(sites.values()),
                host_sync_sites=dict(sites.most_common()), peak_bytes=peak,
-               launches=launches)
+               launches=launches,
+               mp_phases={str(T): n for T, n in mp_shapes.items()},
+               mp_launches_expected=phase_launches(mp_shapes))
     log(f"  {mode} {impl}: wall {rec['wall_s_median']:.4f} s (median of "
         f"3; first {first_s:.3f} s), rounds {rec['rounds']}, objective "
         f"{rec['objective']}, lower bound {rec['lower_bound']}, host syncs "
@@ -1304,7 +1503,7 @@ def lemma4_round0(inst, gen) -> dict:
     kernel against its plain version and cuBLAS at that shape."""
     cfg = api.SolverConfig(graph_impl="dense")
     inst2, c_rep, _, _ = solver._dual_round_core(
-        inst, cfg, cfg.first_round_cycles45, solver.resolve_sweep("cuda"),
+        inst, cfg, cfg.first_round_cycles45, solver.resolve_mp("cuda"),
         solver.resolve_intersect("cuda"))
     inst3 = inst2._replace(cost=c_rep)
     res = solver._primal_round_core(inst3, cfg)
@@ -1368,12 +1567,13 @@ def phase_dense(h: int, w: int, max_neg: int, gen) -> dict:
         if mode == "pd":
             check_solution(inst, rd, "dense pd")
         if DEV.type == "cuda":
-            check(dense["launches"]["triangle_mp"] > 0
-                  and dense["launches"]["cycle_intersect"] == 0,
-                  f"dense {mode}: launched {dense['launches']}")
-            check(sparse["launches"]["triangle_mp"] > 0
-                  and sparse["launches"]["cycle_intersect"] > 0,
-                  f"sparse {mode}: launched {sparse['launches']}")
+            for impl, rec in (("dense", dense), ("sparse", sparse)):
+                n = rec["launches"]["triangle_mp"]
+                check(n > 0 and n == rec["mp_launches_expected"]
+                      and (rec["launches"]["cycle_intersect"] > 0)
+                      == (impl == "sparse"),
+                      f"{impl} {mode}: launched {rec['launches']}, MP "
+                      f"phases {rec['mp_phases']}")
         runs[mode] = dict(dense=dense, sparse=sparse)
     prof = profile_solve(inst, mode="pd", graph_impl="dense")
     if prof:
@@ -1392,8 +1592,10 @@ def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
     out = {"triangle_mp": [], "cycle_intersect": []}
+    E = main["instance"]["pad_edges"]
     for T in sorted(main["main_shapes"]["triangle_mp"]):
-        out["triangle_mp"].append(sweep_case(T, gen))
+        out["triangle_mp"].append(phase_case(T, E, T // 8, gen,
+                                             "main path"))
     for (R, W, Wj) in sorted(main["main_shapes"]["cycle_intersect"]):
         out["cycle_intersect"].append(intersect_case(R, W, Wj, gen))
     return out
@@ -1455,11 +1657,26 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             [[top[0], top[1]], [top[0], top[2]]]
         head = next(c for c in main_cases[name] if c["shape"] == key)
         every = cases[name] + main_cases[name]
-        extra = {} if name == "triangle_mp" else dict(
-            host_us=head["host_us"], device_us=head["device_us"],
-            library_host_us=head["library_host_us"],
-            library_device_us=head["library_device_us"],
-            launch_breakdown=cases["launch_breakdown"])
+        prof = main.get("profile", {})
+        if name == "triangle_mp":
+            extra = dict(
+                bound_share=head["bound_share"],
+                call_device_us=head["call_device_us"],
+                mp_phases=sum(shapes.values()),
+                message_passing_span=prof.get("phases", {}).get(
+                    "repro.message_passing"),
+                sweep_cases=[c for c in cases[name]
+                             if c["label"] == "sweep"],
+                bound_note="the phase kernel's reads of the valid rows, "
+                           "their sorted keys and the touched edges' costs, "
+                           "and its writes of the valid rows and touched "
+                           "edges")
+        else:
+            extra = dict(
+                host_us=head["host_us"], device_us=head["device_us"],
+                library_host_us=head["library_host_us"],
+                library_device_us=head["library_device_us"],
+                launch_breakdown=cases["launch_breakdown"])
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=main["launches"][name],
@@ -1470,8 +1687,8 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             library_ms=head["library_ms"],
             library_note=(None if name == "triangle_mp" else
                           "torch.searchsorted: the search half only"),
-            device_us_per_launch=main.get("profile", {}).get(
-                "kernels", {}).get(name, {}).get("device_us_per_launch"),
+            device_us_per_launch=prof.get("kernels", {}).get(
+                name, {}).get("device_us_per_launch"),
             **extra, cases=every))
     return {"kernels": rows}
 

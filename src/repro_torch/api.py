@@ -40,7 +40,7 @@ from repro_torch.core.graph import (
 )
 from repro_torch.core.solver import (
     BACKENDS, MODES, SolveResult, SolverConfig, resolve_intersect,
-    resolve_sweep, solve_device,
+    resolve_mp, solve_device,
 )
 
 __all__ = [
@@ -159,7 +159,7 @@ def solve(inst: MulticutInstance, mode: str | None = None,
                                     config.sparse_row_cap)
         config = dataclasses.replace(config, sparse_row_cap_short=cap)
     return solve_device(inst, mode=mode, cfg=config,
-                        sweep=resolve_sweep(backend),
+                        mp=resolve_mp(backend),
                         intersect=resolve_intersect(backend), trace=trace)
 
 

@@ -3,9 +3,10 @@
 Port of the replicated half of ``repro.core.message_passing``. Lagrange
 decomposition (5): edge subproblems (min(0, c^λ_e)) + triangle subproblems
 over M_T = {(0,0,0),(1,1,0),(1,0,1),(0,1,1),(1,1,1)}; every triangle is
-updated independently, so one pass runs over all triangles at once. The
-triangle→edge sweep is the hot spot, done by the ``triangle_mp`` kernel
-through the ``sweep=`` hook.
+updated independently, so one pass runs over all triangles at once.
+This is the reference's per-edge layout; the solver's default route runs
+the whole phase as one kernel on compact triangle-edge ids instead
+(``kernels.triangle_mp.ops.mp_phase``), with the same bits.
 
 Triangle costs are stored directly (t_cost = −λ); the reparametrised edge
 cost is c^λ_e = c_e − Σ_t t_cost[t, slot(e)].
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.cycles import Triangles
+from repro_torch.kernels.triangle_mp.ref import lower_bound_terms
 from repro_torch.sparse.segment_ops import SegmentPlan, segment_plan, \
     segment_sum
 
@@ -123,14 +125,8 @@ def lower_bound(cost, edge_valid, state: MPState,
                 plan: SegmentPlan | None = None) -> torch.Tensor:
     """LB(λ) of (5): Σ_e min(0, c^λ_e) + Σ_t min_{y∈M_T} ⟨c_t^λ, y⟩."""
     c_rep = reparametrized_costs(cost, state, plan)
-    zero = torch.zeros_like(c_rep)
-    lb_e = torch.where(edge_valid, torch.minimum(c_rep, zero), zero).sum()
-    a, b, c = state.t_cost[:, 0], state.t_cost[:, 1], state.t_cost[:, 2]
-    states = torch.stack([torch.zeros_like(a), a + b, a + c, b + c,
-                          a + b + c], dim=-1)
-    mins = states.min(dim=-1).values
-    lb_t = torch.where(state.tri_valid, mins, torch.zeros_like(mins)).sum()
-    return lb_e + lb_t
+    return lower_bound_terms(c_rep, edge_valid, state.t_cost,
+                             state.tri_valid)
 
 
 def run_message_passing(cost, edge_valid, state: MPState, iters: int,
@@ -147,3 +143,13 @@ def run_message_passing(cost, edge_valid, state: MPState, iters: int,
     c_rep = reparametrized_costs(cost, state, plan)
     lb = lower_bound(cost, edge_valid, state, plan)
     return state, c_rep, lb
+
+
+def mp_phase_per_edge(cost, edge_valid, tri, tri_valid, iters: int):
+    """:func:`run_message_passing` with the plain sweep, in the signature of
+    the fused phase (``kernels.triangle_mp.ops.mp_phase``): (t_cost, c_rep,
+    lb). The per-edge layout, kept as the solver's ``"reference"`` route so
+    that a run on the card holds the fused kernel against it."""
+    state = init_mp(Triangles(edges=tri, valid=tri_valid))
+    state, c_rep, lb = run_message_passing(cost, edge_valid, state, iters)
+    return state.t_cost, c_rep, lb

@@ -35,7 +35,7 @@ from repro_torch.core.graph import (
     DEFAULT_SPARSE_THRESHOLD, GRAPH_IMPLS, CsrGraph, MulticutInstance,
     csr_from_instance, resolve_graph_impl,
 )
-from repro_torch.core.message_passing import init_mp, run_message_passing
+from repro_torch.core.message_passing import mp_phase_per_edge
 
 MODES = ("p", "pd", "pd+", "d")
 # "cuda" = the hand-written kernels (the default; on a CPU tensor each
@@ -96,13 +96,14 @@ class SolveResult(NamedTuple):
                  "n_clusters": int(self.n_clusters[i])} for i in range(r)]
 
 
-def resolve_sweep(backend: str | None):
-    """Map a backend name to the triangle-sweep implementation."""
+def resolve_mp(backend: str | None):
+    """Map a backend name to the message-passing phase, a function
+    (cost, edge_valid, tri, tri_valid, iters) → (t_cost, c_rep, lb)."""
     if backend == "reference":
-        return None     # run_message_passing uses mp_sweep_reference
+        return mp_phase_per_edge
     if backend is None or backend == "cuda":
-        from repro_torch.kernels.triangle_mp.ops import mp_sweep
-        return mp_sweep
+        from repro_torch.kernels.triangle_mp.ops import mp_phase
+        return mp_phase
     raise ValueError(f"unknown backend {backend!r}; expected one of "
                      f"{BACKENDS}")
 
@@ -129,7 +130,7 @@ class SolverState(NamedTuple):
 
 
 def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
-                     with45: bool, sweep=None, intersect=None, csr=None,
+                     with45: bool, mp=None, intersect=None, csr=None,
                      update_csr: bool = False):
     """One separation + message-passing round. Returns (inst', c_rep, lb,
     csr') — ``csr'`` is the chord-spliced all-edges CSR when
@@ -149,10 +150,11 @@ def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
                        separation_shards=cfg.separation_shards,
                        update_csr=update_csr)
     inst2 = sep.instance
+    if mp is None:
+        mp = mp_phase_per_edge
     with record_function("repro.message_passing"):
-        state = init_mp(sep.triangles)
-        state, c_rep, lb = run_message_passing(
-            inst2.cost, inst2.edge_valid, state, cfg.mp_iters, sweep=sweep)
+        _, c_rep, lb = mp(inst2.cost, inst2.edge_valid, sep.triangles.edges,
+                          sep.triangles.valid, cfg.mp_iters)
     return inst2, c_rep, lb, sep.csr
 
 
@@ -169,31 +171,31 @@ def _primal_round_core(inst: MulticutInstance, cfg: SolverConfig):
 
 
 def fused_pd_round(inst: MulticutInstance, cfg: SolverConfig, with45: bool,
-                   sweep=None, intersect=None):
+                   mp=None, intersect=None):
     """Alg. 3 lines 3–8 as one unit: separation → message passing →
     reparametrise → contract. Returns (ContractionResult, lb)."""
-    inst2, c_rep, lb, _ = _dual_round_core(inst, cfg, with45, sweep,
+    inst2, c_rep, lb, _ = _dual_round_core(inst, cfg, with45, mp,
                                            intersect)
     return _primal_round_core(inst2._replace(cost=c_rep), cfg), lb
 
 
 def _dense_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
-                       sweep=None, intersect=None):
+                       mp=None, intersect=None):
     """:func:`fused_pd_round` in the shape of :func:`fused_pd_round_state`
     (the dense path carries no CSR)."""
-    res, lb = fused_pd_round(state.instance, cfg, with45, sweep, intersect)
+    res, lb = fused_pd_round(state.instance, cfg, with45, mp, intersect)
     state2 = SolverState(instance=res.instance, csr=None,
                          mapping=res.mapping[state.mapping.long()])
     return state2, lb, res
 
 
 def fused_pd_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
-                         sweep=None, intersect=None):
+                         mp=None, intersect=None):
     """The state-carrying PD round (sparse data path): separation reads the
     carried CSR, contraction maintains it, and the original→cluster mapping
     composes. Returns (SolverState', lb, ContractionResult)."""
     inst2, c_rep, lb, _ = _dual_round_core(state.instance, cfg, with45,
-                                           sweep, intersect, csr=state.csr)
+                                           mp, intersect, csr=state.csr)
     inst3 = inst2._replace(cost=c_rep)
     with record_function("repro.contraction"):
         res, csr2 = contract_csr(inst3, _contraction_set(inst3, cfg))
@@ -232,7 +234,7 @@ def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig):
 
 
 def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
-                     sweep=None, intersect=None):
+                     mp=None, intersect=None):
     """Interleaved primal-dual Algorithm 3 (paper's PD / PD+) on either data
     path. The sparse path runs the :class:`SolverState` recursion:
     ``build_csr`` once, before round 0, and every later round reads the CSR
@@ -262,7 +264,7 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
     while r < R:
         state, lb, res = step(state, cfg,
                               with45_first if r == 0 else with45_rest,
-                              sweep, intersect)
+                              mp, intersect)
         if r == 0:
             lb0 = lb
         hist_lb[r] = lb
@@ -279,16 +281,18 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
                        n_clusters=hist_nk)
 
 
-def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, sweep=None,
+def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, mp=None,
                     intersect=None):
     """Dual-only solver (paper's D): ``dual_rounds`` rounds of separation +
     message passing on the original graph; the LB is monotone across
     rounds. Returns (SolveResult, final instance).
 
-    LB accounting: ``run_message_passing`` returns lb_r = edgeLB_r +
-    triLB_r; the triangle parts add up across rounds and only the last
-    round's edge part counts, LB_total = Σ_r triLB_r + Σ_e min(0,
-    c^rep_final), summed in the reference's order. On the sparse path the
+    LB accounting: the MP phase returns lb_r = edgeLB_r + triLB_r; the
+    triangle parts add up across rounds and only the last round's edge
+    part counts, LB_total = Σ_r triLB_r + Σ_e min(0, c^rep_final). The
+    edge part is a ``torch.sum``, in the device's reduction order, not the
+    reference's: it feeds no decision, so only the bound's last bits can
+    differ between devices. On the sparse path the
     all-edges CSR is built once and each round's fresh chords are spliced
     in (``update_csr``); the dense path has no CSR. A fixed number of
     rounds: no exit sync."""
@@ -302,7 +306,7 @@ def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, sweep=None,
     tri_lb_sum = torch.zeros((), dtype=torch.float32, device=dev)
     per_round = []
     for _ in range(R):
-        cur2, c_rep, lb, csr = _dual_round_core(cur, cfg, True, sweep,
+        cur2, c_rep, lb, csr = _dual_round_core(cur, cfg, True, mp,
                                                 intersect, csr=csr,
                                                 update_csr=sparse)
         edge_lb = torch.where(cur2.edge_valid,
@@ -327,7 +331,7 @@ def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, sweep=None,
 
 def solve_device(inst: MulticutInstance, mode: str = "pd",
                  cfg: SolverConfig = SolverConfig(),
-                 sweep=None, intersect=None, trace: bool = False):
+                 mp=None, intersect=None, trace: bool = False):
     """Solve on the instance's device: every mode on both data paths
     (``cfg.graph_impl``). What is not ported yet raises
     ``NotImplementedError`` naming its ROADMAP item."""
@@ -349,6 +353,6 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
     if mode == "p":
         return _solve_p_device(inst, cfg)
     if mode == "d":
-        return _solve_d_device(inst, cfg, sweep, intersect)[0]
-    return _solve_pd_device(inst, cfg, plus=(mode == "pd+"), sweep=sweep,
+        return _solve_d_device(inst, cfg, mp, intersect)[0]
+    return _solve_pd_device(inst, cfg, plus=(mode == "pd+"), mp=mp,
                             intersect=intersect)

@@ -18,7 +18,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noqa: E402,E501
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref  # noqa: E402,E501
 from repro_torch.kernels.triangle_mp import ops as sweep_ops  # noqa: E402
-from repro_torch.kernels.triangle_mp.ref import mp_sweep_ref  # noqa: E402
+from repro_torch.kernels.triangle_mp.ref import mp_phase_ref, \
+    mp_sweep_ref  # noqa: E402
 
 
 @pytest.fixture
@@ -49,6 +50,79 @@ def test_sweep_kernel_bitwise(cuda_device, T):
     assert sweep_ops.launches == n0 + 1
     want = mp_sweep_ref(x)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,offset", [(4096, 1), (4099, 0), (1023, 0)])
+def test_sweep_kernel_unaligned_and_tail(cuda_device, T, offset):
+    """A view that starts 12 bytes into its storage takes the 4-byte path;
+    a ragged last tile (T % 1024 != 0) is masked; both give the bits of
+    the plain version."""
+    rng = np.random.default_rng(T + offset)
+    base = torch.from_numpy((rng.normal(size=(T + offset, 3)) * 3)
+                            .astype(np.float32)).to(cuda_device)
+    x = base[offset:]
+    got = sweep_ops.mp_sweep(x)
+    assert torch.equal(got.view(torch.int32),
+                       mp_sweep_ref(x).view(torch.int32))
+
+
+def _phase_inputs(T, E, n_valid, seed, share=2):
+    """Triangles over E edges, ``n_valid`` of T rows valid (spread), their
+    edge ids drawn from ``3 * n_valid // share`` edges, so an edge sits in
+    up to ~share * 4 triangles; invalid rows zeroed; one edge cost -0.0
+    and one in 16 edges invalid."""
+    rng = np.random.default_rng(seed)
+    pool = rng.choice(E, size=max(3, 3 * n_valid // share), replace=False)
+    tri = pool[rng.integers(0, pool.size, size=(T, 3))].astype(np.int32)
+    valid = np.zeros(T, dtype=bool)
+    valid[rng.choice(T, size=n_valid, replace=False)] = True
+    tri[~valid] = 0
+    cost = (rng.normal(size=E) * 3).astype(np.float32)
+    cost[np.setdiff1d(np.arange(E), pool)[:1]] = -0.0
+    ev = rng.random(E) >= 1 / 16
+    return [torch.from_numpy(a) for a in (cost, ev, tri, valid)]
+
+
+def _bits_equal(got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,n_valid", [(1024, 40000, 128),
+                                         (2048, 40000, 200),
+                                         (1999, 5000, 1500), (37, 200, 30),
+                                         (1 << 20, 1 << 22, 1 << 20),
+                                         (3000, 9000, 0)])
+def test_phase_kernel_bitwise(cuda_device, T, E, n_valid):
+    """The fused MP phase equals its plain version bit for bit (t_cost,
+    c_rep, lb) on the card: one launch of one block up to T = 2 048, a
+    launch per pass and a landing beyond (T = 2^20 and 3 000, the last
+    with no valid row)."""
+    args = [a.to(cuda_device) for a in _phase_inputs(T, E, n_valid, T)]
+    n0 = sweep_ops.launches
+    got = sweep_ops.mp_phase(*args, 5)
+    assert sweep_ops.launches == n0 + (1 if T <= sweep_ops.FUSED_MAX_T
+                                       else 6)
+    assert _bits_equal(got, mp_phase_ref(*args, 5))
+
+
+@pytest.mark.cuda
+def test_phase_kernel_on_a_side_stream(cuda_device):
+    """Both entry points launch on PyTorch's current stream: under
+    ``torch.cuda.stream(s)`` the results are right once ``s`` is
+    synchronised."""
+    args = [a.to(cuda_device) for a in _phase_inputs(1024, 9000, 300, 3)]
+    x = torch.randn(5000, 3, device=cuda_device)
+    want = mp_phase_ref(*args, 5), mp_sweep_ref(x)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(s):
+        got = sweep_ops.mp_phase(*args, 5), sweep_ops.mp_sweep(x)
+    s.synchronize()
+    assert _bits_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -108,6 +182,11 @@ def test_wrappers_raise_on_unsupported_input():
     if torch.cuda.is_available():
         with pytest.raises(ValueError, match="float32"):
             sweep_ops.mp_sweep(torch.zeros(4, 2, device="cuda"))
+        c = torch.zeros(5, device="cuda")
+        with pytest.raises(ValueError, match="int32"):
+            sweep_ops.mp_phase(c, c > 0, torch.zeros(2, 3, device="cuda"),
+                               torch.ones(2, dtype=torch.bool,
+                                          device="cuda"), 5)
         with pytest.raises(ValueError, match="ci on"):
             isect_ops.intersect_rows(cpu, cpu.cuda())
     else:
@@ -291,7 +370,11 @@ def test_contract_matmul_kernel_is_deterministic(cuda_device):
     ("contract_matmul", ["contract_product_kernel", "contract_split_kernel"]),
     ("cycle_intersect", ["cycle_intersect_kernel<0, 0>",
                          "cycle_intersect_kernel<1, 0>",
-                         "cycle_intersect_kernel<1, 1>"])])
+                         "cycle_intersect_kernel<1, 1>"]),
+    ("triangle_mp", ["triangle_mp_sweep_kernel<0>",
+                     "triangle_mp_sweep_kernel<1>",
+                     "triangle_mp_phase_kernel", "triangle_mp_pass_kernel",
+                     "triangle_mp_land_kernel"])])
 def test_kernel_build_report(cuda_device, tmp_path, monkeypatch, name,
                              functions):
     """ptxas's report of a fresh build of the redesigned kernels: every
