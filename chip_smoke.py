@@ -92,6 +92,26 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    ``adjacency_dense`` of the contracted instance within 1e-5 of its
    largest entry, two product launches and four split passes, then the
    kernel against its plain version and cuBLAS at that shape.
+7. The solve server (``repro_torch.serve.SolveEngine``: default bucket
+   policy and router, batch cap 4, in-flight window 2, the kernels).
+   (a) 16 tiles in one ``solve_stream``: 8 ``grid_instance(h, w)`` with
+   h, w in 12..16 (dense route), 4 of 128×128 and 4 of 256×512 (sparse
+   route), seeds 0..15 in a seeded order, counters zeroed just before and
+   read just after (both multicut kernels must launch). Every result
+   equals ``api.solve`` of its bucket-padded instance on its route
+   (labels, histories, objective and bound bit for bit); first-calls stay
+   within buckets × routes × ladder rungs; the 128×128 sub-stream again
+   with ``max_inflight=0`` is bit-identical, with its host syncs per
+   dispatch counted; one 1-slot dispatch of the 256×512 bucket is
+   profiled. Prints requests/s, p50/p95 latency per route, dispatches,
+   occupancy, first-calls, peak memory, the idle share and device time
+   by kernel of the profiled dispatch. (b) A session on the main path's
+   grid: the engine's cold open, one exact tick (1 000 reweights, 100
+   inserts, 100 deletes from a seed) equal to a cold ``api.solve`` of the
+   patched padded instance, then two warm ticks through
+   ``api.solve_delta`` on the carried state, each objective within 1e-5
+   of a float64 host recount and its carried bound below it; prints the
+   cold, exact-tick and warm-tick walls and the phase's seconds.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -100,7 +120,10 @@ full record to ``chiprun_out/chip_smoke.json``.
 ``--rehearse`` runs the same phases on the CPU at small sizes (a 20×20
 main-path grid, a 17×17 card-vs-CPU grid, attention at S <= 128, a
 2-layer gemma2 of width 64, contraction cases up to (513, 100), a 20×20
-dense-path grid), with each kernel wrapper running its plain version, to
+dense-path grid, phase 7's tiles at 12..16 squared with 16×16 and 17×17
+(the sparse route) in place of its two large shapes, and a 24×24 session
+grid with patches of 40, 5 and 5), with each kernel wrapper running its
+plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
 
@@ -146,6 +169,7 @@ from repro_torch.kernels.cycle_intersect import ops as isect_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noqa: E402,E501
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch import serve as solve_server  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref  # noqa: E402,E501
 from repro_torch.kernels.triangle_mp import ops as sweep_ops  # noqa: E402
@@ -931,7 +955,13 @@ def count_syncs(fn) -> Counter:
 
 
 def profile_solve(inst, **kw) -> dict:
-    """One solve (the main path's unless ``kw`` says otherwise) under
+    """:func:`profile_call` of one ``api.solve`` (the main path's unless
+    ``kw`` says otherwise)."""
+    return profile_call(lambda: api.solve(inst, device=DEV, **kw))
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under
     torch.profiler: device busy time (the sum of the device-side kernel and
     copy events), each round phase's host and device milliseconds (the
     solver's ``repro.*`` ranges, summed over rounds: ``device_ms`` is the
@@ -948,7 +978,7 @@ def profile_solve(inst, **kw) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         sync()
         t0 = time.perf_counter()
-        api.solve(inst, device=DEV, **kw)
+        fn()
         sync()
         wall = time.perf_counter() - t0
     phases = {}
@@ -1588,6 +1618,269 @@ def phase_dense(h: int, w: int, max_neg: int, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the solve server
+# ---------------------------------------------------------------------------
+
+# (a) the tile stream: 8 small tiles (h, w in 12..16: dense route), 4 of
+# the middle and 4 of the large shape (sparse route), seeds 0..15, arriving
+# in a seeded random order; (b) the delta session's grid and each tick's
+# patch (reweights, inserts, deletes)
+SERVE_TILES = {"card": ((128, 128), (256, 512)),
+               "rehearse": ((16, 16), (17, 17))}
+SESSION = {"card": ((512, 1024), (1000, 100, 100)),
+           "rehearse": ((24, 24), (40, 5, 5))}
+SERVE_BATCH_CAP = 4
+SERVE_INFLIGHT = 2
+SERVE_PATCH_CAP = 2048
+WARM_REL_TOL = 1e-5     # warm objective vs float64 host recount
+
+
+def tile_stream(rehearse: bool) -> list:
+    rng = np.random.default_rng(0)
+    mid, large = SERVE_TILES["rehearse" if rehearse else "card"]
+    shapes = [tuple(int(x) for x in rng.integers(12, 17, size=2))
+              for _ in range(8)] + [mid] * 4 + [large] * 4
+    return [graph.grid_instance(*shapes[i], seed=int(i), device=DEV)
+            for i in rng.permutation(len(shapes))]
+
+
+def serve_engine(**kw):
+    return solve_server.SolveEngine(
+        router=solve_server.default_router(),
+        policy=solve_server.BucketPolicy(), batch_cap=SERVE_BATCH_CAP,
+        patch_cap=SERVE_PATCH_CAP, device=DEV, **kw)
+
+
+def traced_stream(eng, insts):
+    """``eng.solve_stream(insts)`` keeping its tickets (for per-route
+    latency) and its wall seconds."""
+    tickets = []
+    submit_many = eng.submit_many
+
+    def keep(xs):
+        tickets.extend(submit_many(xs))
+        return tickets
+    eng.submit_many = keep
+    sync()
+    t0 = time.perf_counter()
+    results = eng.solve_stream(insts)
+    sync()
+    return results, tickets, time.perf_counter() - t0
+
+
+def stripped(res, n: int) -> dict:
+    r = host(res)
+    r["labels"] = r["labels"][:n]
+    return r
+
+
+def phase_serve_stream(rehearse: bool) -> dict:
+    """(a) 16 tiles through one ``solve_stream``; every result against
+    ``api.solve`` of its bucket-padded instance on its route, bit for bit;
+    the compile budget; both multicut kernels launched; the middle shape's
+    sub-stream again with ``max_inflight=0``, bit-identical, with its host
+    syncs counted; one sparse dispatch of the large bucket profiled."""
+    insts = tile_stream(rehearse)
+    eng = serve_engine(max_inflight=SERVE_INFLIGHT)
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    results, tickets, wall = traced_stream(eng, insts)
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
+    check(launches.pop("flash_attention") == 0
+          and launches.pop("contract_matmul") == 0,
+          "the stream launched the attention or contraction kernel")
+    check(DEV.type != "cuda" or all(n > 0 for n in launches.values()),
+          f"the stream's sparse dispatches did not launch both kernels: "
+          f"{launches}")
+    st = eng.stats
+    keys = {(t.bucket, t.route) for t in tickets}
+    buckets = {k[0] for k in keys}
+    routes = {eng._static_route.get(k[1], k[1]) for k in keys}
+    budget = len(buckets) * len(routes) * len(
+        solve_server.batch_ladder(SERVE_BATCH_CAP))
+    check(st.n_completed == len(insts) and st.compiles <= budget,
+          f"stream: {st.n_completed} served, {st.compiles} first-calls "
+          f"over the budget {budget}")
+    by_route = {}
+    for inst, t, res in zip(insts, tickets, results):
+        r = t.route
+        ref = api.solve(solve_server.pad_instance(inst, t.bucket),
+                        mode=r.mode, config=r.config, backend=r.backend,
+                        device=DEV)
+        got, want = stripped(res, inst.num_nodes), \
+            stripped(ref, inst.num_nodes)
+        diff = same_result(got, want)
+        check(not diff, f"engine result != api.solve of the padded "
+              f"{inst.num_nodes}-node tile in {diff}")
+        check_solution(inst, got, f"tile {inst.num_nodes}")
+        by_route.setdefault(r.config.graph_impl, []).append(t.latency_s)
+    latency = {impl: dict(n=len(ls), p50_s=float(np.percentile(ls, 50)),
+                          p95_s=float(np.percentile(ls, 95)))
+               for impl, ls in by_route.items()}
+
+    n_mid = int(np.prod(SERVE_TILES["rehearse" if rehearse else "card"][0]))
+    mid = [k for k, i in enumerate(insts) if i.num_nodes == n_mid]
+    sync_eng = serve_engine(max_inflight=0)
+    sub = {}
+    sites = count_syncs(lambda: sub.update(
+        r=sync_eng.solve_stream([insts[k] for k in mid])))
+    for a, b in zip(sub["r"], [results[k] for k in mid]):
+        check(not same_result(host(a), host(b)),
+              "max_inflight=0 differs from the overlapped engine")
+    n_disp = sync_eng.stats.n_dispatches
+    syncs = sum(sites.values())
+
+    big = next(t for t in tickets if t.inst.num_nodes == max(
+        i.num_nodes for i in insts))
+    fn = api.compiled_solve(mode=big.route.mode, config=big.route.config,
+                            backend=big.route.backend, batched=True)
+    batch = solve_server.pad_batch([big.inst], big.bucket, 1)
+    prof = profile_call(lambda: fn(batch))
+    out = dict(
+        requests=len(insts), wall_s=wall, requests_per_s=len(insts) / wall,
+        latency_by_route=latency, dispatches=st.n_dispatches,
+        occupancy=st.occupancy, filler_slots=st.n_filler_slots,
+        compiles=st.compiles, compile_budget=budget,
+        buckets=sorted([list(b) for b in buckets]),
+        inflight_high_water=st.inflight_high_water, launches=launches,
+        peak_bytes=peak, sub_stream=dict(
+            requests=len(mid), dispatches=n_disp, host_syncs=syncs,
+            host_syncs_per_dispatch=syncs / max(n_disp, 1),
+            host_sync_sites=dict(sites.most_common(8))),
+        profiled_dispatch=dict(bucket=list(big.bucket), slots=1, **prof))
+    log(f"  stream: {len(insts)} requests in {wall:.3f} s "
+        f"({out['requests_per_s']:.3f} requests/s), latency by route "
+        f"{latency}, {st.n_dispatches} dispatches, occupancy "
+        f"{st.occupancy:.3f}, first-calls {st.compiles} (budget {budget}), "
+        f"launches {launches}, peak {peak} B [{CARD_NAME}]")
+    log(f"  sub-stream of {len(mid)} with max_inflight=0: bit-identical; "
+        f"{n_disp} dispatches, {syncs} host syncs "
+        f"({out['sub_stream']['host_syncs_per_dispatch']:.1f} a dispatch) "
+        f"[{CARD_NAME}]")
+    if prof:
+        busy = prof["device_busy_ms"]
+        log(f"  profiled sparse dispatch {list(big.bucket)}: device busy "
+            f"{busy:.1f} of {prof['wall_ms']:.1f} ms (idle share "
+            f"{1 - busy / prof['wall_ms']:.3f}); kernels {prof['kernels']};"
+            f" top {prof['top_device_kernels'][:5]} [{CARD_NAME}]")
+    return out
+
+
+def seeded_patch(inst, seed: int, sizes) -> tuple:
+    """(make_patch kwargs) from a seed: reweights and deletes of distinct
+    live edges of ``inst``, inserts of absent pairs of live nodes."""
+    n_rw, n_ins, n_del = sizes
+    rng = np.random.default_rng(seed)
+    ev = inst.edge_valid.cpu().numpy()
+    u, v = inst.u.cpu().numpy()[ev], inst.v.cpu().numpy()[ev]
+    n = int(inst.node_valid.sum())
+    pick = rng.choice(len(u), size=n_rw + n_del, replace=False)
+    rw, de = pick[:n_rw], pick[n_rw:]
+    have = set((u.astype(np.int64) * n + v).tolist())
+    ins = []
+    while len(ins) < n_ins:
+        a, b = sorted(rng.choice(n, size=2, replace=False).tolist())
+        if a * n + b not in have:
+            have.add(a * n + b)
+            ins.append((a, b))
+    ia, ib = np.array(ins, dtype=np.int64).T
+    return dict(reweight=(u[rw], v[rw],
+                          rng.normal(0, 1.5, n_rw).astype(np.float32)),
+                insert=(ia, ib, rng.normal(0, 1.5, n_ins).astype(np.float32)),
+                delete=(u[de], v[de]))
+
+
+def phase_serve_session(rehearse: bool, max_neg: int) -> dict:
+    """(b) A sticky session on the main path's grid: the engine's cold open
+    and one exact tick (against a cold ``api.solve`` of the patched padded
+    instance, bit for bit), then two warm ticks through ``api.solve_delta``
+    on the session's carried state (objective against a float64 recount,
+    carried bound below it)."""
+    (h, w), sizes = SESSION["rehearse" if rehearse else "card"]
+    E = grid_edges(h, w)
+    inst = graph.grid_instance(h, w, seed=0, pad_edges=E + 4 * max_neg,
+                               device=DEV)
+    eng = serve_engine(max_inflight=SERVE_INFLIGHT)
+    sync()
+    t0 = time.perf_counter()
+    s = eng.open_session(inst, warm=False)
+    sync()
+    cold_s = time.perf_counter() - t0
+    cold_open = host(s.last_result)
+    check_solution(inst, cold_open, "session cold open")
+    r = s.route
+    kw = dict(mode=r.mode, config=r.config, backend=r.backend, device=DEV)
+    patch = api.make_patch(s.bucket.nodes, pad_entries=SERVE_PATCH_CAP,
+                           device=DEV, **seeded_patch(s.state.instance, 100,
+                                                      sizes))
+    padded = solve_server.pad_instance(inst, s.bucket)
+    sync()
+    t0 = time.perf_counter()
+    res = eng.submit_delta(s.session_id, patch).result()
+    sync()
+    exact_s = time.perf_counter() - t0
+    want = api.apply_patch_host(padded, patch)
+    check(all(torch.equal(a, b) for a, b in zip(s.state.instance, want)),
+          "the session's patched instance != the host reference")
+    cold = api.solve(want, **kw)
+    diff = same_result(stripped(res, inst.num_nodes),
+                       stripped(cold, inst.num_nodes))
+    check(not diff, f"exact tick != cold solve of the patched instance in "
+          f"{diff}")
+    state = s.state
+    warm = []
+    for k in range(2):
+        patch = api.make_patch(s.bucket.nodes, pad_entries=SERVE_PATCH_CAP,
+                               device=DEV, **seeded_patch(state.instance,
+                                                          101 + k, sizes))
+        sync()
+        t0 = time.perf_counter()
+        wres, state = api.solve_delta(state, patch, warm=True, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        lab = state.labels.cpu().numpy()
+        i2 = state.instance
+        cut = i2.edge_valid.cpu().numpy() & (lab[i2.u.cpu().numpy()]
+                                             != lab[i2.v.cpu().numpy()])
+        obj64 = float(i2.cost.cpu().numpy().astype(np.float64)[cut].sum())
+        obj, lb = float(wres.objective), float(wres.lower_bound)
+        check(abs(obj - obj64) <= WARM_REL_TOL * max(1.0, abs(obj64)),
+              f"warm tick {k}: objective {obj} vs host recount {obj64}")
+        check(lb <= obj, f"warm tick {k}: bound {lb} > objective {obj}")
+        warm.append(dict(wall_s=wall, objective=obj, objective_host_f64=obj64,
+                         carried_lower_bound=lb,
+                         rounds=int(wres.rounds)))
+    out = dict(instance=dict(h=h, w=w, nodes=inst.num_nodes,
+                             pad_edges=inst.num_edges),
+               bucket=list(s.bucket), patch=dict(zip(
+                   ("reweights", "inserts", "deletes"), sizes)),
+               cold_open_s=cold_s, exact_tick_s=exact_s,
+               cold_objective=float(cold_open["objective"]),
+               cold_lower_bound=float(cold_open["lower_bound"]),
+               exact_objective=float(res.objective),
+               exact_lower_bound=float(res.lower_bound), warm_ticks=warm,
+               delta_filler_slots=eng.stats.n_delta_filler_slots)
+    log(f"  session {h}x{w} (bucket {list(s.bucket)}): cold open "
+        f"{cold_s:.3f} s, exact tick {exact_s:.3f} s (equal to the cold "
+        f"solve, objective {out['exact_objective']}), warm ticks "
+        f"{[round(x['wall_s'], 3) for x in warm]} s, objectives "
+        f"{[x['objective'] for x in warm]}, carried bounds "
+        f"{[x['carried_lower_bound'] for x in warm]} [{CARD_NAME}]")
+    return out
+
+
+def phase_serve(rehearse: bool, max_neg: int) -> dict:
+    t0 = time.perf_counter()
+    out = dict(stream=phase_serve_stream(rehearse),
+               session=phase_serve_session(rehearse, max_neg))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 7 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -1602,7 +1895,7 @@ def main_path_cases(main: dict, gen) -> dict:
 
 
 def kernel_line(cases: dict, main_cases: dict, main: dict,
-                lm: dict, dense: dict) -> dict:
+                lm: dict, dense: dict, served: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
         if name == "contract_matmul":
@@ -1687,6 +1980,7 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             library_ms=head["library_ms"],
             library_note=(None if name == "triangle_mp" else
                           "torch.searchsorted: the search half only"),
+            engine_launches=served["stream"]["launches"][name],
             device_us_per_launch=prof.get("kernels", {}).get(
                 name, {}).get("device_us_per_launch"),
             **extra, cases=every))
@@ -1748,8 +2042,11 @@ def main(argv=None) -> int:
         record["dense"] = phase_dense(
             *DENSE_GRID["rehearse" if args.rehearse else "card"],
             api.SolverConfig().max_neg, gen)
+        log("phase 7: the solve server")
+        record["serve"] = phase_serve(args.rehearse,
+                                      api.SolverConfig().max_neg)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
-                           record["dense"])
+                           record["dense"], record["serve"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -9,10 +9,18 @@
     mc = api.Multicut.from_preset("paper-pd+")
     res = mc.solve(inst)
 
+    batch = api.stack_instances([inst0, inst1, ...])
+    results = api.unstack_results(mc.solve_batch(batch))
+
+    res, state = api.solve_with_state(inst)   # open a delta session
+    res, state = api.solve_delta(state, api.make_patch(
+        inst.num_nodes, reweight=(u, v, c)), warm=True)
+
 **Device.** Entry points run on the card: ``make_instance``/the
-generators and :func:`solve` put tensors on ``cuda`` unless ``device=`` names
-another device, and raise when no card is present. Tests pass
-``device="cpu"``.
+generators, :func:`make_patch`, :func:`solve`, :func:`solve_batch`,
+:func:`solve_with_state` and :func:`solve_delta` put tensors on ``cuda``
+unless ``device=`` names another device, and raise when no card is
+present. Tests pass ``device="cpu"``.
 
 **Backend — a deliberate difference from the reference.** The JAX
 package's default backend is ``"reference"`` (plain jnp) and its Pallas
@@ -23,17 +31,35 @@ PyTorch versions. ``backend="reference"`` runs the plain versions on any
 device; it exists so a run on the card can hold the kernels' solve against
 the plain one.
 
-Ported so far: modes ``p``, ``pd``, ``pd+`` and ``d`` on both separation
-data paths (``graph_impl="dense"``, ``"sparse"``, and ``"auto"``, which
-picks dense up to ``sparse_threshold`` padded nodes). Traces
-(``trace=True``), ``state_shards`` and ``separation_shards > 1`` raise
-``NotImplementedError`` naming their ROADMAP item; batches and the
-executable cache are not ported yet (ROADMAP Queue 1 item 8).
+**The registry.** Every entry point dispatches through a bounded LRU
+registry keyed, as the reference's, per (mode, config, backend, batched,
+batch_shards, kind, traced). An entry is one resolved callable: config,
+backend and kernels resolved, the kernels built at its first call on the
+card. There is no ``torch.compile`` and no CUDA graph yet (the solve syncs
+with the host every round), so a "trace" here is the first call of an
+entry at a new input-shape signature: :func:`trace_count` counts those,
+which keeps the serving engine's compile budget (≤ buckets × routes ×
+ladder rungs) meaningful. A batched entry solves the slots of the leading
+axis one after another and stacks the results, so each slot equals the
+unbatched solve of that slot bit for bit (the reference's ``vmap`` is
+bit-preserving too). Each call records a CUDA event after its work is
+queued; :func:`tree_ready` queries it without blocking.
+
+Ported: modes ``p``, ``pd``, ``pd+`` and ``d`` on both separation data
+paths (``graph_impl="dense"``, ``"sparse"``, and ``"auto"``, which picks
+dense up to ``sparse_threshold`` padded nodes); batches; delta solves,
+exact and warm. Traces (``trace=True``), ``state_shards``,
+``separation_shards > 1`` and a clamped ``batch_shards > 1`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
+import torch
+
+from repro_torch.core.dist import resolve_batch_shards
 from repro_torch.core.graph import (
     GRAPH_IMPLS, ROW_CAP_FLOOR, MulticutInstance, attractive_degree_p95,
     make_instance, resolve_device, resolve_graph_impl,
@@ -42,11 +68,24 @@ from repro_torch.core.solver import (
     BACKENDS, MODES, SolveResult, SolverConfig, resolve_intersect,
     resolve_mp, solve_device,
 )
+from repro_torch.incremental.patch import (
+    DeltaPatch, apply_patch_host, make_patch, pad_patch,
+)
+from repro_torch.incremental.solve import solve_cold_device, \
+    solve_delta_device
+from repro_torch.incremental.state import DeltaState, init_delta_state
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
-    "BACKENDS", "GRAPH_IMPLS", "MODES", "Multicut", "MulticutInstance",
-    "Preset", "PRESETS", "SolveResult", "SolverConfig", "get_preset",
-    "list_presets", "make_instance", "register_preset", "solve",
+    "BACKENDS", "CACHE_MAXSIZE", "GRAPH_IMPLS", "KINDS", "MODES",
+    "DeltaPatch", "DeltaState", "Multicut", "MulticutInstance", "Preset",
+    "PRESETS", "SolveResult", "SolverConfig", "apply_patch_host",
+    "block_until_ready", "cache_info", "clear_cache", "compiled_delta",
+    "compiled_solve", "get_preset", "init_delta_state", "list_presets",
+    "make_instance", "make_patch", "pad_patch", "register_preset",
+    "set_cache_maxsize", "solve", "solve_batch", "solve_delta",
+    "solve_with_state", "stack_instances", "trace_count", "tree_ready",
+    "unstack_results",
 ]
 
 DEFAULT_BACKEND = "cuda"
@@ -115,6 +154,212 @@ for _p in (
     register_preset(_p)
 
 
+# ---------------------------------------------------------------------------
+# The callable registry (what the serving engine dispatches through)
+# ---------------------------------------------------------------------------
+
+CACHE_MAXSIZE = 128     # distinct (mode, config, backend, batched, shards,
+                        # kind, traced) entries kept live; LRU past that
+
+KINDS = ("solve", "delta", "delta-warm", "delta-open")
+
+_trace_count = [0]      # first calls of an entry at a new input-shape
+                        # signature: the port's count of "compilations"
+
+_KERNEL_LIBS = ("triangle_mp", "cycle_intersect")   # the solver's kernels
+
+
+def trace_count() -> int:
+    """First calls of a registry entry at a new input-shape signature
+    since process start or the last :func:`clear_cache` /
+    :func:`set_cache_maxsize`. A new (mode, config, backend) or a new
+    input shape each add one; repeated calls add none."""
+    return _trace_count[0]
+
+
+def _record_ready(tree) -> None:
+    """Record one CUDA event after the work that produced ``tree`` was
+    queued, and hang it on the tree's CUDA tensors for :func:`tree_ready`
+    and :func:`block_until_ready`."""
+    cuda = [x for x in tree_leaves(tree) if x.is_cuda]
+    if cuda:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(cuda[0].device))
+        for x in cuda:
+            x._repro_ready = ev
+
+
+class _Entry:
+    """One registry entry: the program of one key with its mode, config
+    and backend resolved. Counts a trace at the first call of each input
+    signature (shapes, dtypes, devices), when it also builds the kernels
+    of a ``"cuda"`` backend on the card. A batched entry solves the
+    leading axis slot by slot and stacks the results."""
+
+    def __init__(self, run, batched: bool, backend: str):
+        self._run = run
+        self._batched = batched
+        self._backend = backend
+        self._seen: set = set()
+
+    def __call__(self, *args):
+        leaves = tree_leaves(args)
+        sig = tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
+        if sig not in self._seen:
+            if self._backend == "cuda" and any(x.is_cuda for x in leaves):
+                from repro_torch.kernels import _build
+                _build.build_all(_KERNEL_LIBS)
+            self._seen.add(sig)
+            _trace_count[0] += 1
+        if not self._batched:
+            out = self._run(*args)
+        else:
+            B = leaves[0].shape[0] if leaves and leaves[0].dim() else 0
+            if B < 1:
+                raise ValueError("a batched call needs a leading batch "
+                                 "axis of at least one slot")
+            outs = [self._run(*tree_map(lambda x, b=b: x[b], args))
+                    for b in range(B)]
+            out = tree_map(lambda *xs: torch.stack(xs), *outs)
+        _record_ready(out)
+        return out
+
+
+def _make_registry(maxsize: int):
+    """Build the LRU registry. A factory so :func:`set_cache_maxsize` can
+    swap the bound in place."""
+
+    @lru_cache(maxsize=maxsize)
+    def _compiled(mode: str, cfg: SolverConfig, backend: str, batched: bool,
+                  batch_shards: int = 1, kind: str = "solve",
+                  traced: bool = False):
+        """One resolved callable per (mode, config, backend, batched,
+        batch_shards, kind, traced). ``kind`` selects the program:
+        "solve" takes an instance; "delta-open" takes an instance and
+        returns (result, DeltaState); "delta"/"delta-warm" take
+        (DeltaState, DeltaPatch) and return (result, DeltaState,
+        PatchInfo). ``traced`` selects the telemetry-carrying solve, not
+        ported yet (it raises at call, naming its item)."""
+        if traced and kind != "solve":
+            raise ValueError(f"trace=True applies to kind='solve' "
+                             f"callables only (got kind={kind!r})")
+        if batch_shards > 1:
+            resolve_batch_shards(batch_shards)      # raises: item 13
+        if batched and cfg.state_shards:
+            raise ValueError(
+                "state_shards and batched solves are mutually exclusive "
+                "(one device mesh)")
+        mp = resolve_mp(backend)
+        intersect = resolve_intersect(backend)
+        if kind == "solve":
+            def run(inst: MulticutInstance):
+                return solve_device(inst, mode=mode, cfg=cfg, mp=mp,
+                                    intersect=intersect, trace=traced)
+        elif kind == "delta-open":
+            def run(inst: MulticutInstance):
+                return solve_cold_device(inst, mode, cfg, mp=mp,
+                                         intersect=intersect)
+        elif kind in ("delta", "delta-warm"):
+            warm = kind == "delta-warm"
+
+            def run(state: DeltaState, patch: DeltaPatch):
+                return solve_delta_device(state, patch, mode, cfg, mp=mp,
+                                          intersect=intersect, warm=warm)
+        else:
+            raise ValueError(f"unknown executable kind {kind!r}; expected "
+                             f"one of {KINDS}")
+        return _Entry(run, batched, backend)
+
+    return _compiled
+
+
+_compiled = _make_registry(CACHE_MAXSIZE)
+
+
+def set_cache_maxsize(maxsize: int) -> None:
+    """Swap the registry for a fresh one bounded at ``maxsize`` and reset
+    :func:`trace_count`; every cached entry is dropped."""
+    global _compiled
+    _compiled = _make_registry(int(maxsize))
+    _trace_count[0] = 0
+
+
+def compiled_solve(mode: str | None = None,
+                   config: SolverConfig | None = None,
+                   backend: str | None = None,
+                   preset: str | Preset | None = None,
+                   batched: bool = False, batch_shards: int = 1,
+                   trace: bool = False):
+    """The cached callable :func:`solve` / :func:`solve_batch` would
+    dispatch to. ``batch_shards`` is clamped to the cards present before
+    the key is formed, so both spellings share one entry."""
+    mode, config, backend = _normalize(mode, config, backend, preset)
+    if batch_shards > 1 and not batched:
+        raise ValueError("batch_shards applies to batched executables only")
+    if trace:
+        return _compiled(mode, config, backend, batched,
+                         resolve_batch_shards(batch_shards), "solve", True)
+    return _compiled(mode, config, backend, batched,
+                     resolve_batch_shards(batch_shards))
+
+
+def compiled_delta(mode: str | None = None,
+                   config: SolverConfig | None = None,
+                   backend: str | None = None,
+                   preset: str | Preset | None = None,
+                   warm: bool = False, batched: bool = False):
+    """Cached delta callable ``(DeltaState, DeltaPatch) -> (SolveResult,
+    DeltaState, PatchInfo)``; every leaf gains a leading batch axis when
+    ``batched`` (the serving tier's sticky-session dispatch)."""
+    mode, config, backend = _normalize(mode, config, backend, preset)
+    if warm and mode == "d":
+        raise ValueError("warm delta re-solve needs a primal solution to "
+                         "lift; mode 'd' produces none")
+    return _compiled(mode, config, backend, batched, 1,
+                     "delta-warm" if warm else "delta")
+
+
+def clear_cache() -> None:
+    """Drop every cached entry and reset :func:`trace_count`."""
+    _compiled.cache_clear()
+    _trace_count[0] = 0
+
+
+def cache_info():
+    """``functools.lru_cache`` statistics of the registry
+    (hits/misses/maxsize/currsize)."""
+    return _compiled.cache_info()
+
+
+def tree_ready(tree) -> bool:
+    """Non-blocking readiness probe for a tree of tensors: False while the
+    CUDA event recorded after the call that produced a CUDA leaf has not
+    completed (a leaf made elsewhere gets a fresh event on its stream,
+    which answers for everything queued so far). CPU and host leaves are
+    always ready. What the serving engine harvests on."""
+    for leaf in tree_leaves(tree):
+        if leaf.is_cuda:
+            ev = getattr(leaf, "_repro_ready", None)
+            if ev is None:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(leaf.device))
+            if not ev.query():
+                return False
+    return True
+
+
+def block_until_ready(tree):
+    """Wait until every CUDA leaf of ``tree`` is computed; returns it."""
+    for leaf in tree_leaves(tree):
+        if leaf.is_cuda:
+            ev = getattr(leaf, "_repro_ready", None)
+            if ev is not None:
+                ev.synchronize()
+            else:
+                torch.cuda.current_stream(leaf.device).synchronize()
+    return tree
+
+
 def _normalize(mode, config, backend, preset, graph_impl=None):
     if preset is not None:
         p = get_preset(preset) if isinstance(preset, str) else preset
@@ -149,23 +394,107 @@ def solve(inst: MulticutInstance, mode: str | None = None,
     (results are identical for any cap)."""
     mode, config, backend = _normalize(mode, config, backend, preset,
                                        graph_impl)
-    dev = resolve_device(device)
-    if inst.device != dev:
-        inst = inst.to(dev)
+    inst = _on(inst, device)
     if tune_sparse_caps and resolve_graph_impl(
             config.graph_impl, inst.num_nodes,
             config.sparse_threshold) == "sparse":
         cap = attractive_degree_p95(inst, ROW_CAP_FLOOR,
                                     config.sparse_row_cap)
         config = dataclasses.replace(config, sparse_row_cap_short=cap)
-    return solve_device(inst, mode=mode, cfg=config,
-                        mp=resolve_mp(backend),
-                        intersect=resolve_intersect(backend), trace=trace)
+    if trace:
+        return _compiled(mode, config, backend, False, 1, "solve",
+                         True)(inst)
+    return _compiled(mode, config, backend, False, 1)(inst)
+
+
+def _on(tree, device):
+    """``tree`` with every tensor on ``device`` (default ``cuda``; raises
+    without a card unless told)."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: x.to(dev), tree)
+
+
+def solve_batch(batch: MulticutInstance, mode: str | None = None,
+                config: SolverConfig | None = None,
+                backend: str | None = None,
+                preset: str | Preset | None = None,
+                graph_impl: str | None = None, batch_shards: int = 1,
+                device=None) -> SolveResult:
+    """Solve a stacked batch of same-shape instances (every leaf with a
+    leading batch axis, see :func:`stack_instances`) on ``device``; the
+    result is batched the same way (see :func:`unstack_results`), each
+    slot equal to the unbatched solve of that slot bit for bit."""
+    mode, config, backend = _normalize(mode, config, backend, preset,
+                                       graph_impl)
+    shards = resolve_batch_shards(batch_shards)
+    batch = _on(batch, device)
+    return _compiled(mode, config, backend, True, shards)(batch)
+
+
+def solve_with_state(inst: MulticutInstance, mode: str | None = None,
+                     config: SolverConfig | None = None,
+                     backend: str | None = None,
+                     preset: str | Preset | None = None,
+                     graph_impl: str | None = None, device=None,
+                     ) -> tuple[SolveResult, DeltaState]:
+    """Solve and open a delta session: like :func:`solve`, but also returns
+    the :class:`DeltaState` (instance + live CSR + labels) that
+    :func:`solve_delta` carries forward. Its CSR feeds this very solve on
+    the sparse path, so opening a session costs no extra sort."""
+    mode, config, backend = _normalize(mode, config, backend, preset,
+                                       graph_impl)
+    return _compiled(mode, config, backend, False, 1,
+                     "delta-open")(_on(inst, device))
+
+
+def solve_delta(state: DeltaState, patch: DeltaPatch,
+                mode: str | None = None,
+                config: SolverConfig | None = None,
+                backend: str | None = None,
+                preset: str | Preset | None = None,
+                graph_impl: str | None = None, warm: bool = False,
+                device=None) -> tuple[SolveResult, DeltaState]:
+    """One update tick: apply ``patch`` to the carried ``state`` (CSR
+    spliced, never rebuilt) and re-solve. Returns ``(result, new_state)``.
+
+    Exact mode (default) equals a cold :func:`solve` of the patched
+    instance bit for bit. ``warm=True`` keeps clusters untouched by the
+    patch contracted and restricts round-0 separation to the patch
+    frontier; its ``lower_bound`` is the carried bound (the last exact
+    tick's plus the patch slack ``Σ min(0, Δcost)``), valid but looser,
+    and its objective is exact for the returned labels."""
+    mode, config, backend = _normalize(mode, config, backend, preset,
+                                       graph_impl)
+    if warm and mode == "d":
+        raise ValueError("warm delta re-solve needs a primal solution to "
+                         "lift; mode 'd' produces none")
+    kind = "delta-warm" if warm else "delta"
+    res, state2, _ = _compiled(mode, config, backend, False, 1, kind)(
+        _on(state, device), _on(patch, device))
+    return res, state2
+
+
+def stack_instances(instances: list[MulticutInstance]) -> MulticutInstance:
+    """Stack same-shape instances along a new leading batch axis."""
+    if not instances:
+        raise ValueError("need at least one instance")
+    shapes = {(i.num_nodes, i.num_edges) for i in instances}
+    if len(shapes) > 1:
+        raise ValueError(f"instances must share padded shapes; got {shapes} "
+                         "(re-pad with make_instance(pad_nodes=, pad_edges=))")
+    return tree_map(lambda *xs: torch.stack(xs), *instances)
+
+
+def unstack_results(batched: SolveResult) -> list[SolveResult]:
+    """Split a batched SolveResult back into per-instance results."""
+    B = batched.labels.shape[0]
+    return [tree_map(lambda x, b=b: x[b], batched) for b in range(B)]
 
 
 class Multicut:
     """Solver bound to a (mode, config, backend, device): a thin, stateless
-    facade over :func:`solve`."""
+    facade over :func:`solve` / :func:`solve_batch`; two facades with
+    equal settings share registry entries."""
 
     def __init__(self, mode: str = "pd",
                  config: SolverConfig | None = None,
@@ -192,9 +521,13 @@ class Multicut:
         new.update(kwargs)
         return Multicut(**new)
 
-    def solve(self, inst: MulticutInstance) -> SolveResult:
+    def solve(self, inst: MulticutInstance, trace: bool = False):
         return solve(inst, mode=self.mode, config=self.config,
-                     backend=self.backend, device=self.device)
+                     backend=self.backend, trace=trace, device=self.device)
+
+    def solve_batch(self, batch: MulticutInstance) -> SolveResult:
+        return solve_batch(batch, mode=self.mode, config=self.config,
+                           backend=self.backend, device=self.device)
 
     def __repr__(self):
         return (f"Multicut(mode={self.mode!r}, backend={self.backend!r}, "

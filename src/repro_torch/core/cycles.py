@@ -90,13 +90,17 @@ def _topk_lowest_index(score: torch.Tensor, k: int):
 
 
 def select_repulsive_edges(inst: MulticutInstance, max_neg: int,
-                           threshold: float = 0.0):
+                           threshold: float = 0.0, node_mask=None):
     """Indices of the ``max_neg`` most repulsive valid edges (+ mask).
 
+    ``node_mask`` ((N,) bool, optional) keeps only edges with an endpoint
+    in the mask: the frontier of a warm delta re-solve's first round.
     All non-candidates tie at -inf; their indices still flow into the
     windows (masked later), so the tie order must be the reference's:
     lowest index first."""
     sel = inst.edge_valid & (inst.cost < threshold)
+    if node_mask is not None:
+        sel = sel & (node_mask[inst.u.long()] | node_mask[inst.v.long()])
     score = torch.where(sel, -inst.cost,
                         torch.full_like(inst.cost, float("-inf")))
     k = min(max_neg, score.shape[0])
@@ -130,11 +134,13 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def separate_triangles(inst: MulticutInstance, adj: DenseAdj,
-                       max_neg: int, max_tri_per_edge: int) -> Triangles:
+                       max_neg: int, max_tri_per_edge: int,
+                       node_mask=None) -> Triangles:
     """3-cycles, dense path: for each repulsive edge (i, j) up to K common
     attractive neighbours k, the K smallest ids (the reference's top_k over
     the 0/1 row AND), give triangles (ij, ik, jk)."""
-    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg)
+    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg,
+                                             node_mask=node_mask)
     i = inst.u[neg_idx.long()].long()
     j = inst.v[neg_idx.long()].long()
     K = min(max_tri_per_edge, inst.num_nodes)
@@ -177,7 +183,8 @@ def separate_triangles_sparse(inst: MulticutInstance, csr_pos: CsrGraph,
                               max_neg: int, max_tri_per_edge: int,
                               row_cap: int = 128, row_cap_short: int = 0,
                               intersect=None,
-                              chunk: int = 0, shards: int = 1) -> Triangles:
+                              chunk: int = 0, shards: int = 1,
+                              node_mask=None) -> Triangles:
     """3-cycles, CSR path: the common-neighbour test is a sorted-row
     intersection of the two endpoints' attractive rows. ``row_cap_short``
     > 0 splits edges into degree buckets (narrow pass + chunk-gated wide
@@ -188,7 +195,8 @@ def separate_triangles_sparse(inst: MulticutInstance, csr_pos: CsrGraph,
     K = min(max_tri_per_edge, N)
     W = max(K, min(row_cap, N))
     Ws = max(K, min(row_cap_short, N)) if row_cap_short > 0 else W
-    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg)
+    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg,
+                                             node_mask=node_mask)
     i = inst.u[neg_idx.long()]
     j = inst.v[neg_idx.long()]
 
@@ -446,7 +454,8 @@ def _run_long_bucket(fn, consts, edge_args, is_long, chunk: int, shards: int,
 
 
 def separate_cycles45(inst: MulticutInstance, adj: DenseAdj, max_neg: int,
-                      nbr_k: int = 4) -> CycleSeparationResult:
+                      nbr_k: int = 4,
+                      node_mask=None) -> CycleSeparationResult:
     """4/5-cycles per Alg. 5, dense path: for repulsive edge (v0, v4), scan
     pairs (v1, v3) ∈ N⁺(v0) × N⁺(v4); a 4-cycle needs v1v3 ∈ E⁺, a 5-cycle
     a common attractive neighbour v2 (a row-dot of ``A⁺``). The best pair
@@ -459,7 +468,8 @@ def separate_cycles45(inst: MulticutInstance, adj: DenseAdj, max_neg: int,
     counts."""
     N = inst.num_nodes
     nbr_k = min(nbr_k, N)
-    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg)
+    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg,
+                                             node_mask=node_mask)
     v0 = inst.u[neg_idx.long()]
     v4 = inst.v[neg_idx.long()]
     Apos = adj.Apos
@@ -514,6 +524,7 @@ def separate_cycles45_sparse(inst: MulticutInstance, csr_pos: CsrGraph,
                              row_cap: int = 128, row_cap_short: int = 0,
                              intersect=None,
                              chunk: int = 0, shards: int = 1,
+                             node_mask=None,
                              splice_into: CsrGraph | None = None,
                              ) -> CycleSeparationResult:
     """4/5-cycles, CSR path (mirrors the dense scan pair for pair):
@@ -527,7 +538,8 @@ def separate_cycles45_sparse(inst: MulticutInstance, csr_pos: CsrGraph,
     nbr_k = min(nbr_k, N)
     W = max(1, min(row_cap, N))
     Ws = max(1, min(row_cap_short, N)) if row_cap_short > 0 else W
-    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg)
+    neg_idx, neg_ok = select_repulsive_edges(inst, max_neg,
+                                             node_mask=node_mask)
     v0 = inst.u[neg_idx.long()]
     v4 = inst.v[neg_idx.long()]
     n0, _, ok0 = csr_row_window(csr_pos, v0, nbr_k)     # (M, nbr_k)
@@ -634,7 +646,7 @@ def separate(inst: MulticutInstance, max_neg: int, max_tri_per_edge: int,
              sparse_row_cap_short: int = 0,
              sparse_threshold: int = DEFAULT_SPARSE_THRESHOLD, intersect=None,
              csr: CsrGraph | None = None, separation_chunk: int = 0,
-             separation_shards: int = 1,
+             separation_shards: int = 1, sep_node_mask=None,
              update_csr: bool = False) -> CycleSeparationResult:
     """Full separation round: 3-cycles always; 4/5-cycles optionally.
 
@@ -645,15 +657,19 @@ def separate(inst: MulticutInstance, max_neg: int, max_tri_per_edge: int,
     absent). ``intersect`` swaps the sorted-row intersection (None = plain
     version, or the cycle_intersect kernel wrapper). ``update_csr`` asks
     the sparse path to return that CSR with the round's fresh chords
-    spliced in (``result.csr``). The dense path ignores ``csr``,
+    spliced in (``result.csr``). ``sep_node_mask`` ((N,) bool, optional)
+    restricts repulsive-edge selection to edges touching the mask on both
+    paths (warm delta re-solves). The dense path ignores ``csr``,
     ``intersect``, the row caps and the chunking."""
     impl = resolve_graph_impl(graph_impl, inst.num_nodes, sparse_threshold)
     if impl == "dense":
         adj = build_adjacency(inst)
-        tri3 = separate_triangles(inst, adj, max_neg, max_tri_per_edge)
+        tri3 = separate_triangles(inst, adj, max_neg, max_tri_per_edge,
+                                  node_mask=sep_node_mask)
         if not with_cycles45:
             return CycleSeparationResult(instance=inst, triangles=tri3)
-        res45 = separate_cycles45(inst, adj, max_neg, nbr_k=nbr_k)
+        res45 = separate_cycles45(inst, adj, max_neg, nbr_k=nbr_k,
+                                  node_mask=sep_node_mask)
     else:
         csr_all = csr_from_instance(inst) if csr is None else csr
         csr_pos = csr_filter(csr_all, inst.edge_valid & (inst.cost > 0))
@@ -663,7 +679,8 @@ def separate(inst: MulticutInstance, max_neg: int, max_tri_per_edge: int,
                                          row_cap_short=sparse_row_cap_short,
                                          intersect=intersect,
                                          chunk=separation_chunk,
-                                         shards=separation_shards)
+                                         shards=separation_shards,
+                                         node_mask=sep_node_mask)
         if not with_cycles45:
             return CycleSeparationResult(
                 instance=inst, triangles=tri3,
@@ -672,7 +689,7 @@ def separate(inst: MulticutInstance, max_neg: int, max_tri_per_edge: int,
             inst, csr_pos, csr_all, max_neg, nbr_k=nbr_k,
             row_cap=sparse_row_cap, row_cap_short=sparse_row_cap_short,
             intersect=intersect, chunk=separation_chunk,
-            shards=separation_shards,
+            shards=separation_shards, node_mask=sep_node_mask,
             splice_into=csr_all if update_csr else None)
     edges = torch.cat([tri3.edges, res45.triangles.edges], dim=0)
     valid = torch.cat([tri3.valid, res45.triangles.valid], dim=0)

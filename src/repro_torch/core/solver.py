@@ -131,10 +131,11 @@ class SolverState(NamedTuple):
 
 def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
                      with45: bool, mp=None, intersect=None, csr=None,
-                     update_csr: bool = False):
+                     update_csr: bool = False, node_mask=None):
     """One separation + message-passing round. Returns (inst', c_rep, lb,
     csr') — ``csr'`` is the chord-spliced all-edges CSR when
-    ``update_csr`` (sparse path), else None. The ``repro.*`` ranges name
+    ``update_csr`` (sparse path), else None. ``node_mask`` restricts the
+    round's repulsive edges to a frontier. The ``repro.*`` ranges name
     the round's phases in a torch.profiler trace, as the reference's
     ``jax.named_scope``s do in its HLO."""
     with record_function("repro.separation"):
@@ -148,7 +149,7 @@ def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
                        intersect=intersect, csr=csr,
                        separation_chunk=cfg.separation_chunk,
                        separation_shards=cfg.separation_shards,
-                       update_csr=update_csr)
+                       sep_node_mask=node_mask, update_csr=update_csr)
     inst2 = sep.instance
     if mp is None:
         mp = mp_phase_per_edge
@@ -171,31 +172,33 @@ def _primal_round_core(inst: MulticutInstance, cfg: SolverConfig):
 
 
 def fused_pd_round(inst: MulticutInstance, cfg: SolverConfig, with45: bool,
-                   mp=None, intersect=None):
+                   mp=None, intersect=None, node_mask=None):
     """Alg. 3 lines 3–8 as one unit: separation → message passing →
     reparametrise → contract. Returns (ContractionResult, lb)."""
     inst2, c_rep, lb, _ = _dual_round_core(inst, cfg, with45, mp,
-                                           intersect)
+                                           intersect, node_mask=node_mask)
     return _primal_round_core(inst2._replace(cost=c_rep), cfg), lb
 
 
 def _dense_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
-                       mp=None, intersect=None):
+                       mp=None, intersect=None, node_mask=None):
     """:func:`fused_pd_round` in the shape of :func:`fused_pd_round_state`
     (the dense path carries no CSR)."""
-    res, lb = fused_pd_round(state.instance, cfg, with45, mp, intersect)
+    res, lb = fused_pd_round(state.instance, cfg, with45, mp, intersect,
+                             node_mask)
     state2 = SolverState(instance=res.instance, csr=None,
                          mapping=res.mapping[state.mapping.long()])
     return state2, lb, res
 
 
 def fused_pd_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
-                         mp=None, intersect=None):
+                         mp=None, intersect=None, node_mask=None):
     """The state-carrying PD round (sparse data path): separation reads the
     carried CSR, contraction maintains it, and the original→cluster mapping
     composes. Returns (SolverState', lb, ContractionResult)."""
     inst2, c_rep, lb, _ = _dual_round_core(state.instance, cfg, with45,
-                                           mp, intersect, csr=state.csr)
+                                           mp, intersect, csr=state.csr,
+                                           node_mask=node_mask)
     inst3 = inst2._replace(cost=c_rep)
     with record_function("repro.contraction"):
         res, csr2 = contract_csr(inst3, _contraction_set(inst3, cfg))
@@ -234,7 +237,7 @@ def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig):
 
 
 def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
-                     mp=None, intersect=None):
+                     mp=None, intersect=None, csr0=None, sep_mask0=None):
     """Interleaved primal-dual Algorithm 3 (paper's PD / PD+) on either data
     path. The sparse path runs the :class:`SolverState` recursion:
     ``build_csr`` once, before round 0, and every later round reads the CSR
@@ -242,7 +245,12 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
     its (N, N) matrices each round, as the reference does. Round 0 may
     separate 4/5-cycles and gives the solve's lower bound (the only one
     valid on the original graph). The loop exits early when a round
-    contracts nothing — one host sync per round."""
+    contracts nothing — one host sync per round.
+
+    Delta re-solves seed the solve: ``csr0`` is a live all-edges CSR of
+    ``inst`` that replaces the sparse path's initial ``build_csr`` (the
+    dense path has no CSR to carry and ignores it), and ``sep_mask0``
+    restricts round 0's separation to a frontier on both paths."""
     N, R = inst.num_nodes, cfg.max_rounds
     dev = inst.device
     with45_first = cfg.always_cycles45 or plus or cfg.first_round_cycles45
@@ -253,7 +261,8 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
 
     state = SolverState(
         instance=inst,
-        csr=csr_from_instance(inst) if sparse else None,
+        csr=(csr_from_instance(inst) if csr0 is None else csr0)
+        if sparse else None,
         mapping=torch.arange(N, dtype=torch.int32, device=dev))
     hist_lb = torch.full((R,), float("-inf"), dtype=torch.float32,
                          device=dev)
@@ -264,7 +273,8 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
     while r < R:
         state, lb, res = step(state, cfg,
                               with45_first if r == 0 else with45_rest,
-                              mp, intersect)
+                              mp, intersect,
+                              node_mask=sep_mask0 if r == 0 else None)
         if r == 0:
             lb0 = lb
         hist_lb[r] = lb
@@ -331,10 +341,14 @@ def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, mp=None,
 
 def solve_device(inst: MulticutInstance, mode: str = "pd",
                  cfg: SolverConfig = SolverConfig(),
-                 mp=None, intersect=None, trace: bool = False):
+                 mp=None, intersect=None, trace: bool = False, csr=None,
+                 sep_node_mask=None):
     """Solve on the instance's device: every mode on both data paths
     (``cfg.graph_impl``). What is not ported yet raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    ``NotImplementedError`` naming its ROADMAP item.
+
+    ``csr``/``sep_node_mask`` seed delta re-solves in modes pd and pd+
+    (see :func:`_solve_pd_device`); modes p and d ignore both."""
     if cfg.graph_impl not in GRAPH_IMPLS:
         raise ValueError(f"unknown graph_impl {cfg.graph_impl!r}; expected "
                          f"one of {GRAPH_IMPLS}")
@@ -343,6 +357,11 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
     if trace:
         raise NotImplementedError(
             "trace=True is not ported yet (ROADMAP Queue 1 item 9)")
+    if cfg.state_shards and (csr is not None or sep_node_mask is not None):
+        raise ValueError("state_shards does not take warm-start seeds "
+                         "(csr/sep_node_mask): the carried CSR is "
+                         "per-shard with local edge ids, not the "
+                         "replicated one delta re-solves splice")
     if cfg.state_shards:
         raise NotImplementedError(
             "state_shards is not ported yet (ROADMAP Queue 1 item 13)")
@@ -355,4 +374,5 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
     if mode == "d":
         return _solve_d_device(inst, cfg, mp, intersect)[0]
     return _solve_pd_device(inst, cfg, plus=(mode == "pd+"), mp=mp,
-                            intersect=intersect)
+                            intersect=intersect, csr0=csr,
+                            sep_mask0=sep_node_mask)

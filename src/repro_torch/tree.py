@@ -1,0 +1,32 @@
+"""Maps over nested NamedTuples of tensors (instances, results, delta
+states, patches): the port's stand-in for ``jax.tree.map`` on the
+structures the batched API and the serving engine stack and slice."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["tree_leaves", "tree_map"]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf to trees of one structure: tensors are
+    leaves, tuples and NamedTuples are rebuilt with their own type, None
+    stays None."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        kids = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else tuple(kids)
+    raise TypeError(f"tree_map: unsupported node {type(tree).__name__}")
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return []

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: one each
 
 from repro_torch.kernels.contract_matmul import ops as cm_ops  # noqa: E402
 from repro_torch.kernels.contract_matmul.ref import contract_matmul_ref, \
@@ -427,3 +428,64 @@ def test_fixed_order_sums_card_equals_cpu(cuda_device):
     cpu = segment_sum(vals, ids, 50000)
     card = segment_sum(vals.to(cuda_device), ids.to(cuda_device), 50000)
     assert torch.equal(card.cpu(), cpu)
+
+
+def _tiny_stream():
+    from repro_torch.core.graph import grid_instance, random_instance
+    return [random_instance(12, 0.5, seed=s, pad_edges=64, pad_nodes=16,
+                            device="cpu") for s in range(3)] + \
+        [grid_instance(18, 18, seed=s, device="cpu") for s in range(2)]
+
+
+@pytest.mark.cuda
+def test_engine_stream_card_equals_cpu(cuda_device):
+    """A tiny mixed stream (dense and sparse routes, the kernels on the
+    card) through the engine on the card and on the CPU: labels and
+    integer histories equal, objective and bound within 1e-5 relative
+    (float32 sums reduced in another order on each device)."""
+    from repro_torch.serve import SolveEngine
+    stream = _tiny_stream()
+    gpu = SolveEngine(batch_cap=2, flush_timeout_s=None,
+                      device=cuda_device).solve_stream(stream)
+    cpu = SolveEngine(batch_cap=2, flush_timeout_s=None,
+                      device="cpu").solve_stream(stream)
+    for g, c in zip(gpu, cpu):
+        for f in ("labels", "rounds", "n_contracted", "n_clusters"):
+            assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+        for f in ("objective", "lower_bound"):
+            np.testing.assert_allclose(float(getattr(g, f)),
+                                       float(getattr(c, f)), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_engine_exact_tick_equals_cold_solve_on_card(cuda_device):
+    """An exact session tick on the card equals a cold api.solve of the
+    patched bucket-padded instance bit for bit; a warm tick's objective is
+    its labels' objective and its carried bound lies below it."""
+    from repro_torch import api
+    from repro_torch.core.graph import grid_instance
+    from repro_torch.incremental import apply_patch_host, make_patch
+    from repro_torch.serve import SolveEngine, pad_instance
+    inst = grid_instance(20, 20, seed=3, pad_edges=2000, device=cuda_device)
+    ev = inst.edge_valid.cpu().numpy()
+    u, v = inst.u.cpu().numpy()[ev], inst.v.cpu().numpy()[ev]
+    patch = make_patch(inst.num_nodes, reweight=(u[:5], v[:5],
+                                                 [-2.0, 3.0, -1.0, 2.0, 0.5]),
+                       delete=(u[5:7], v[5:7]), device=cuda_device)
+    for warm in (False, True):
+        eng = SolveEngine(batch_cap=2, flush_timeout_s=None, patch_cap=8,
+                          device=cuda_device)
+        s = eng.open_session(inst, warm=warm)
+        res = eng.submit_delta(s.session_id, patch).result()
+        padded = apply_patch_host(pad_instance(inst, s.bucket), patch)
+        if not warm:
+            cold = api.solve(padded, mode=s.route.mode, config=s.route.config,
+                             device=cuda_device)
+            for f, x, y in zip(res._fields, res, cold):
+                assert torch.equal(x, y[:inst.num_nodes] if f == "labels"
+                                   else y), f
+        else:
+            np.testing.assert_allclose(
+                float(res.objective),
+                float(padded.objective(s.state.labels)), rtol=1e-5)
+            assert float(res.lower_bound) <= float(res.objective)

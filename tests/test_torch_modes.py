@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: one each
 pytest.importorskip("jax")
 
 from repro import api as japi  # noqa: E402

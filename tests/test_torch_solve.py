@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: one each
 pytest.importorskip("jax")
 
 from repro import api as japi  # noqa: E402
@@ -104,8 +105,9 @@ def test_api_raises_for_unported_parts():
 
 
 def test_port_imports_no_jax():
-    """Importing the port, and chip_smoke.py's own imports, load no jax and
-    no module of the JAX package."""
+    """Importing the port (the solve server, delta solves, observability
+    and the batch and registry entry points included), and chip_smoke.py's
+    own imports, load no jax and no module of the JAX package."""
     code = (
         "import sys, runpy\n"
         "import repro_torch.api, repro_torch.convert\n"
@@ -115,6 +117,11 @@ def test_port_imports_no_jax():
         "import repro_torch.kernels.contract_matmul.ops\n"
         "import repro_torch.models.transformer, repro_torch.configs\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.serve, repro_torch.incremental, repro_torch.obs\n"
+        "from repro_torch.api import (solve_batch, solve_delta,\n"
+        "    solve_with_state, stack_instances, unstack_results, tree_ready,\n"
+        "    compiled_solve, compiled_delta, trace_count, cache_info)\n"
+        "from repro_torch.core.dist import resolve_batch_shards\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -138,6 +145,7 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert out.returncode == 3, out.stderr[-2000:]
     assert "phase 4" in out.stdout and '"ok"' not in out.stdout
     assert "phase 5" in out.stdout and "phase 6" in out.stdout
+    assert "phase 7" in out.stdout and "exact tick" in out.stdout
     assert "labels equal True" in out.stdout
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
