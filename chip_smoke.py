@@ -113,6 +113,34 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    of a float64 host recount and its carried bound below it; prints the
    cold, exact-tick and warm-tick walls and the phase's seconds.
 
+8. Solve traces, Table 1, streamed ingest and the roofline. (a) The main
+   path with ``trace=True``: labels, rounds, histories, objective and
+   bound bit for bit equal to phase 3's, with the same host syncs and
+   launches; the trace's bound rows equal ``lb_history`` and its last
+   objective the result's; prints each round's row (bound, objective,
+   cycles, contractions, clusters, MP gain), the gap, and the traced wall
+   against the untraced (medians of 3). (b) Modes p, pd+ and d traced on
+   ``grid_instance(128, 128)``, dense and sparse, each bit-equal to its
+   untraced solve. (c) The paper's Table 1 on the card: on
+   ``grid_instance(128, 128, seed=0)`` the port's GAEC, GEF, BEC,
+   greedy-join local search and ICP on the host, each timed, and RAMA pd
+   on the card at the default preset and at ``max_rounds=64``; on the
+   main path's grid GAEC and RAMA pd at both settings. Every labelling
+   must be a partition, ``baselines.objective`` equal a float64 recount
+   within 1e-5, and every lower bound lie below every feasible objective
+   on its instance; quality is reported, not gated. (d) The main path's
+   grid streamed back through ``make_instance_streamed`` in chunks of
+   2^18 edges: leaves equal to the generator's, the solve equal to phase
+   3's, peak host slots = pad_edges + chunk; prints the ingest seconds
+   and the pinned host-to-device copy's GB/s. (e)
+   ``roofline.profile_solve_round`` on the main path (sparse) and on
+   128×128 dense, against the card's ``Hardware`` entry (its name must be
+   nvidia-smi's): per phase wall, bytes, flops, dominant term, roofline
+   seconds and share, beside phase 3's and 6's profiled spans; then the
+   ``rama-multicut`` cells' steps (``pd_round_sm``, ``pd_round_lg``,
+   ``mp_sweep_1m``, which must launch ``triangle_mp``) on inputs from a
+   seed, timed, with their model-FLOPs rate.
+
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
 full record to ``chiprun_out/chip_smoke.json``.
@@ -122,7 +150,8 @@ main-path grid, a 17×17 card-vs-CPU grid, attention at S <= 128, a
 2-layer gemma2 of width 64, contraction cases up to (513, 100), a 20×20
 dense-path grid, phase 7's tiles at 12..16 squared with 16×16 and 17×17
 (the sparse route) in place of its two large shapes, and a 24×24 session
-grid with patches of 40, 5 and 5), with each kernel wrapper running its
+grid with patches of 40, 5 and 5, phase 8 on 20×20 grids with 64-edge
+ingest chunks and small arch cells), with each kernel wrapper running its
 plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
@@ -158,8 +187,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
+from repro_torch import roofline  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import contraction, graph, solver  # noqa: E402
+from repro_torch.core import baselines, contraction, graph, solver  # noqa: E402,E501
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.contract_matmul import ops as cm_ops  # noqa: E402
 from repro_torch.kernels.contract_matmul.ref import (  # noqa: E402
@@ -171,17 +201,19 @@ from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noq
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch import serve as solve_server  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.obs import summarize  # noqa: E402
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref  # noqa: E402,E501
 from repro_torch.kernels.triangle_mp import ops as sweep_ops  # noqa: E402
 from repro_torch.kernels.triangle_mp.ref import (  # noqa: E402
-    mp_phase_ref, mp_plan, mp_sweep_ref,
+    mp_phase_ref, mp_sweep_ref,
 )
 from repro_torch.sparse import segment_ops  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
-TF32_OPS_PER_S = 495e12         # H100 SXM TF32 tensor cores, dense
+# the card's data-sheet peaks, from the port's one table of them
+HBM_BYTES_PER_S = roofline.HW.hbm_bw
+FP32_OPS_PER_S = roofline.FP32_FLOPS
+BF16_OPS_PER_S = roofline.HW.peak_flops
+TF32_OPS_PER_S = roofline.TF32_FLOPS
 FLASH_TOL = dict(atol=1e-2, rtol=1e-2)
 LOGITS_REL_TOL = 0.1            # max |diff| / max |ref| of LM logits
 GREEDY_AGREE_MIN = 0.85         # kernel vs plain prefill, random weights
@@ -192,7 +224,6 @@ DECODE_F32_REL_TOL = 1e-4       # decode vs forward, float32, 2 layers
 CONTRACT_REL_TOL = 1e-5
 DENSE_REL_TOL = 1e-4            # dense vs sparse objective / lower bound
 CPU_REL_TOL = 1e-5              # card vs CPU objective / lower bound
-SWEEP_FLOPS = 50                # per triangle: 6 steps x ~8 ops
 MP_ITERS = 5                    # SolverConfig().mp_iters
 # the fused MP phase's kernels; the sweep alone is triangle_mp_sweep_kernel
 PHASE_SYMBOLS = ("triangle_mp_phase_kernel", "triangle_mp_pass_kernel",
@@ -352,7 +383,8 @@ def sweep_case(T: int, gen) -> dict:
     err = float((got - want).abs().max()) if T else 0.0
     check(bitwise, f"triangle_mp sweep T={T}: not bitwise equal (max err "
           f"{err})")
-    bound_ms, by = bound(24 * T, SWEEP_FLOPS * T)
+    ops, bytes_moved = sweep_ops.sweep_work(T)
+    bound_ms, by = bound(bytes_moved, ops)
 
     def call():
         return sweep_ops.mp_sweep(x)
@@ -364,6 +396,7 @@ def sweep_case(T: int, gen) -> dict:
                 plain_ms=cuda_ms(lambda: mp_sweep_ref(x)),
                 device_us=dev_us, l2_warm_device_us=warm_us,
                 library_ms=None, bound_ms=bound_ms, bound_by=by,
+                work=dict(ops=ops, bytes=bytes_moved),
                 bound_share=(bound_ms * 1e3 / dev_us if dev_us else None))
 
 
@@ -382,25 +415,6 @@ def phase_inputs(T: int, E: int, n_valid: int, gen):
     cost = torch.randn(E, generator=gen, device=DEV) * 3.0
     ev = torch.rand(E, generator=gen, device=DEV) >= 1 / 16
     return cost, ev, tri, valid
-
-
-def phase_work(cost, tri, valid, iters: int) -> tuple[int, int]:
-    """Bytes and float ops the phase kernel needs on these inputs: the
-    row flags, the valid rows' edge ids, the sorted keys and entries of
-    their slots and the touched edges' costs read once, the valid rows'
-    costs and the touched edges' c_rep written once; each pass a slot
-    adds its segment's entries (+3: c + Σ, / deg, + t) and the sweep
-    takes ~50, the landing adds each segment once more."""
-    plan = mp_plan(cost, tri, valid)
-    nv = int(valid.sum())
-    seg = plan.length[plan.length > 0].long()
-    U = int(seg.numel())
-    slot_adds = int((seg * seg).sum())      # Σ over valid slots of deg
-    T = tri.shape[0]
-    bytes_moved = T + 12 * nv + 3 * nv * (4 + 8) + 4 * U + 12 * nv + 4 * U
-    ops = iters * (slot_adds + 9 * nv + SWEEP_FLOPS * nv) \
-        + int(seg.sum()) + U
-    return bytes_moved, ops
 
 
 def phase_case(T: int, E: int, n_valid: int, gen, label: str,
@@ -427,7 +441,8 @@ def phase_case(T: int, E: int, n_valid: int, gen, label: str,
               for g, w in zip(got, want))
     check(all(same), f"triangle_mp phase T={T}: (t_cost, c_rep, lb) "
           f"bitwise equal {same} (max err {err})")
-    bytes_moved, ops = phase_work(cost, tri, valid, iters)
+    # the kernels' own reads, writes and ops on these inputs
+    ops, bytes_moved = sweep_ops.work(cost, tri, valid, iters)
     bound_ms, by = bound(bytes_moved, ops)
 
     def call():
@@ -442,6 +457,7 @@ def phase_case(T: int, E: int, n_valid: int, gen, label: str,
                                                       iters)),
                 device_us=kernel_us, call_device_us=device_us(call),
                 library_ms=None, bound_ms=bound_ms, bound_by=by,
+                work=dict(ops=ops, bytes=bytes_moved),
                 bound_share=(bound_ms * 1e3 / kernel_us if kernel_us
                              else None))
 
@@ -471,12 +487,9 @@ def intersect_case(R: int, W: int, Wj: int, gen, ci=None) -> dict:
     equal = bool(torch.equal(got, want))
     err = float((got - want).abs().max()) if got.numel() else 0.0
     check(equal, f"cycle_intersect {(R, W, Wj)}: not equal (max err {err})")
-    bytes_moved = 4 * (2 * R * W + R * Wj)
-    # data-dependent work: one upper-bound search of ceil(log2(Wj + 1))
-    # compares per element (counted as 2 ops each: compare + select)
-    ops = 2 * R * W * int(np.ceil(np.log2(Wj + 1)))
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    # one upper-bound search of ceil(log2(Wj + 1)) compares per element
+    ops, bytes_moved = isect_ops.work(R, W, Wj)
+    bound_ms, by = bound(bytes_moved, ops)
 
     def kernel():
         isect_ops.intersect_rows(ci, cj)
@@ -491,8 +504,8 @@ def intersect_case(R: int, W: int, Wj: int, gen, ci=None) -> dict:
                 matches=int((got >= 0).sum()),
                 kernel_ms=cuda_ms(kernel),
                 plain_ms=cuda_ms(lambda: intersect_rows_ref(ci, cj)),
-                library_ms=cuda_ms(library), bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=cuda_ms(library), bound_ms=bound_ms, bound_by=by,
+                work=dict(ops=ops, bytes=bytes_moved),
                 host_us=host_us(kernel), device_us=device_us(kernel),
                 library_host_us=host_us(library),
                 library_device_us=device_us(library))
@@ -1101,6 +1114,7 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
             f"{prof['device_launches']} device events; phases "
             f"{prof['phases']}; kernels {prof['kernels']}")
     out["main_shapes"] = main_shapes
+    out["_inst"], out["_result"] = inst, r      # for phase 8; not written
     return out
 
 
@@ -1881,6 +1895,345 @@ def phase_serve(rehearse: bool, max_neg: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: solve traces, the sequential baselines, streamed ingest and the
+# per-phase roofline of a round
+# ---------------------------------------------------------------------------
+
+# (c) Table 1's grids: the small one (every baseline, ICP included) and
+# the one GAEC also runs on beside RAMA (the main path's); (d) the ingest
+# chunk in edges; (e) the arch cells' dims in a rehearsal (the card runs
+# the cells' own)
+TABLE1 = {"card": ((128, 128), (512, 1024)), "rehearse": ((20, 20), (20, 20))}
+INGEST_CHUNK = {"card": 1 << 18, "rehearse": 64}
+LONG_ROUNDS = 64        # (c): max_rounds for the run-until-done setting
+RAMA_REHEARSE = {"pd_round_sm": dict(n_nodes=64, n_edges=320),
+                 "pd_round_lg": dict(n_nodes=144, n_edges=700),
+                 "mp_sweep_1m": dict(n_edges=3000, n_triangles=4099)}
+
+
+def traced_solve(inst, **kw):
+    sync()
+    t0 = time.perf_counter()
+    res, tr = api.solve(inst, device=DEV, trace=True, **kw)
+    sync()
+    return res, tr, time.perf_counter() - t0
+
+
+def phase8_traced_main(main: dict) -> dict:
+    """(a) The main path traced: bit-equal to phase 3's untraced result,
+    with the same launches and host syncs; the trace's bound rows equal
+    the result's history and its last objective the result's."""
+    inst, want = main["_inst"], main["_result"]
+    reset_counters()
+    res, tr, first_s = traced_solve(inst)
+    launches = all_launches()
+    r = host(res)
+    diff = same_result(r, want)
+    check(not diff, f"traced main path != phase 3's solve in {diff}")
+    check(launches == main["launches"] | {"flash_attention": 0,
+                                          "contract_matmul": 0},
+          f"traced main path launched {launches}, the untraced "
+          f"{main['launches']}")
+    R = int(r["rounds"])
+    check(int(tr.rounds) == R, f"trace rounds {int(tr.rounds)} != {R}")
+    lb = tr.lower_bound.cpu().numpy()
+    check(np.array_equal(lb[:R], r["lb_history"][:R]),
+          "trace lower_bound rows != the result's lb_history")
+    check(float(tr.objective[R - 1]) == float(r["objective"]),
+          f"trace's last objective {float(tr.objective[R - 1])} != "
+          f"{float(r['objective'])}")
+    walls = [traced_solve(inst)[2] for _ in range(3)]
+    sites = count_syncs(lambda: api.solve(inst, device=DEV, trace=True))
+    syncs = sum(sites.values())
+    summ = summarize(tr)
+    untraced = main["wall_s_median"]
+    out = dict(rounds=R, first_call_s=first_s, wall_s=walls,
+               wall_s_median=statistics.median(walls),
+               untraced_wall_s_median=untraced,
+               overhead=statistics.median(walls) / untraced - 1,
+               host_syncs=syncs, launches=launches, summary=summ)
+    for row in summ["per_round"]:
+        log("  round {round}: LB {lower_bound}, objective {objective}, "
+            "cycles {n_cycles}, contracted {n_contracted}, clusters "
+            "{n_clusters}, MP gain {mp_improvement}".format(**row))
+    log(f"  traced main path: gap {summ.get('gap')}, wall "
+        f"{out['wall_s_median']:.3f} s against untraced {untraced:.3f} s "
+        f"(medians of 3; overhead {out['overhead']:+.4f}), host syncs "
+        f"{syncs} {dict(sites.most_common())}, launches {launches} "
+        f"[{CARD_NAME}]")
+    # the port's own sync sites must match the untraced solve's one for
+    # one (a sync outside the port, e.g. a one-time lazy init in torch,
+    # is printed but not held)
+    own = {k: n for k, n in sites.items() if not k.startswith("outside")}
+    want = {k: n for k, n in main["host_sync_sites"].items()
+            if not k.startswith("outside")}
+    check(own == want, f"traced main path: the port's host syncs {own}, "
+          f"the untraced solve's {want}")
+    return out
+
+
+def phase8_traced_modes(h: int, w: int, max_neg: int) -> dict:
+    """(b) Modes p, pd+ and d traced on both data paths, each bit-equal to
+    its untraced solve."""
+    inst = graph.grid_instance(h, w, seed=0,
+                               pad_edges=grid_edges(h, w) + 4 * max_neg,
+                               device=DEV)
+    out = {}
+    for mode in ("p", "pd+", "d"):
+        for impl in ("dense", "sparse"):
+            ref = host(api.solve(inst, mode=mode, graph_impl=impl,
+                                 device=DEV))
+            res, tr, _ = traced_solve(inst, mode=mode, graph_impl=impl)
+            diff = same_result(host(res), ref)
+            check(not diff, f"traced {mode} {impl} != untraced in {diff}")
+            out[f"{mode} {impl}"] = dict(rounds=int(tr.rounds),
+                                         summary=summarize(tr))
+            log(f"  traced {mode} {impl}: bit-equal, {int(tr.rounds)} "
+                f"rounds, final row {summarize(tr)['per_round'][-1]}")
+    return out
+
+
+def timed_host(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def check_labels(inst, labels: np.ndarray, what: str) -> float:
+    """A labelling is a partition of the valid nodes into clusters 0..k-1,
+    and ``baselines.objective`` equals a float64 recount within 1e-5."""
+    n = int(inst.node_valid.sum())
+    lab = labels[:n]
+    k = len(np.unique(lab))
+    check(lab.min() == 0 and lab.max() == k - 1,
+          f"{what}: labels are not a partition (ids 0..{k - 1})")
+    u, v, c = graph.to_host_edges(inst)
+    obj64 = float(c.astype(np.float64)[labels[u] != labels[v]].sum())
+    obj = baselines.objective(inst, labels)
+    check(abs(obj - obj64) <= 1e-5 * max(1.0, abs(obj64)),
+          f"{what}: objective {obj} vs float64 recount {obj64}")
+    return obj
+
+
+def rama_rows(inst, rows: dict, main_res=None):
+    """RAMA pd on the card at the default preset (phase 3's result on the
+    main path) and with max_rounds = 64."""
+    long_cfg = api.SolverConfig(max_rounds=LONG_ROUNDS)
+    for name, kw, given in (("RAMA pd (max_rounds 16)", {}, main_res),
+                            (f"RAMA pd (max_rounds {LONG_ROUNDS})",
+                             dict(config=long_cfg), None)):
+        if given is None:
+            res, wall = timed_solve(inst, **kw)
+            r = host(res)
+        else:
+            r, wall = given
+        obj = check_labels(inst, r["labels"], name)
+        check(rel_close(obj, r["objective"], 1e-4),
+              f"{name}: objective {r['objective']} vs host {obj}")
+        rows[name] = dict(objective=float(r["objective"]),
+                          lower_bound=float(r["lower_bound"]),
+                          rounds=int(r["rounds"]), wall_s=wall,
+                          device=str(DEV))
+
+
+def check_bounds(rows: dict, what: str):
+    """Every lower bound on an instance is <= every feasible objective."""
+    lbs = {k: r["lower_bound"] for k, r in rows.items()
+           if r.get("lower_bound") is not None}
+    objs = {k: r["objective"] for k, r in rows.items()
+            if r.get("objective") is not None}
+    for kl, lb in lbs.items():
+        for ko, obj in objs.items():
+            check(lb <= obj + 1e-5 * max(1.0, abs(obj)),
+                  f"{what}: {kl} bound {lb} > {ko} objective {obj}")
+    for r in rows.values():
+        if r.get("objective") is not None:
+            r["gap_to_best_bound"] = r["objective"] - max(lbs.values())
+
+
+def phase8_table1(small, large, main: dict) -> dict:
+    """(c) Table 1 on the card: the sequential baselines on the host and
+    RAMA on the card, on the small grid and the main path's."""
+    out = {}
+    for (h, w), big in ((small, False), (large, True)):
+        inst = main["_inst"] if big else graph.grid_instance(
+            h, w, seed=0, device=DEV)
+        rows = {}
+        algos = [("GAEC", baselines.gaec)]
+        if not big:
+            algos += [("GEF", baselines.gef), ("BEC", baselines.bec)]
+        for name, fn in algos:
+            lab, t = timed_host(fn, inst)
+            rows[name] = dict(objective=check_labels(inst, lab, name),
+                              wall_s=t, device="host")
+            if name == "GAEC":
+                gaec_labels = lab
+        if not big:
+            lab, t = timed_host(baselines.greedy_join_local_search, inst,
+                                gaec_labels)
+            rows["GAEC + local search"] = dict(
+                objective=check_labels(inst, lab, "local search"),
+                wall_s=t, device="host")
+            lb, t = timed_host(baselines.icp, inst)
+            rows["ICP"] = dict(lower_bound=lb, wall_s=t, device="host")
+        main_res = (main["_result"], main["wall_s_median"]) if big else None
+        rama_rows(inst, rows, main_res)
+        key = f"{h}x{w}" + (" (main path)" if big else "")
+        check_bounds(rows, key)
+        out[key] = rows
+        for name, r in rows.items():
+            log(f"  Table 1 {key} {name}: " + ", ".join(
+                f"{k} {v}" for k, v in r.items()) + f" [{CARD_NAME}]")
+    return out
+
+
+def phase8_ingest(main: dict, chunk: int) -> dict:
+    """(d) The main path's grid streamed back in through
+    ``make_instance_streamed``: leaves equal the generator's, the solve
+    equals phase 3's, and the host holds one buffer and one chunk."""
+    inst = main["_inst"]
+    u, v, c = graph.to_host_edges(inst)
+    chunks = [(u[i:i + chunk], v[i:i + chunk], c[i:i + chunk])
+              for i in range(0, len(u), chunk)]
+    sync()
+    t0 = time.perf_counter()
+    got, stats = graph.make_instance_streamed(
+        iter(chunks), inst.num_nodes, pad_edges=inst.num_edges, device=DEV)
+    sync()
+    ingest_s = time.perf_counter() - t0
+    same = [f for f, a, b in zip(inst._fields, got, inst)
+            if not torch.equal(a, b)]
+    check(not same, f"streamed instance != the generator's in {same}")
+    check(stats.peak_host_elems == inst.num_edges + chunk,
+          f"streamed ingest peak {stats.peak_host_elems} host slots, want "
+          f"{inst.num_edges + chunk}")
+    r = host(api.solve(got, device=DEV))
+    diff = same_result(r, main["_result"])
+    check(not diff, f"the streamed instance solves differently in {diff}")
+    nbytes = sum(t.numel() * t.element_size() for t in got[:4])
+    copy_ms = float("nan")
+    if DEV.type == "cuda":      # the host-to-device copy alone, pinned
+        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        copy_ms = cuda_ms(lambda: pinned.to(DEV, non_blocking=True), 5, 1)
+    out = dict(chunk=chunk, n_chunks=stats.n_chunks, n_edges=stats.n_edges,
+               peak_host_elems=stats.peak_host_elems, ingest_s=ingest_s,
+               bytes=nbytes, ingest_gb_per_s=nbytes / ingest_s / 1e9,
+               copy_ms=copy_ms, copy_gb_per_s=nbytes / copy_ms / 1e6)
+    log(f"  streamed ingest: {stats.n_edges} edges in {stats.n_chunks} "
+        f"chunks of {chunk}, peak {stats.peak_host_elems} host slots, "
+        f"{ingest_s:.3f} s ({out['ingest_gb_per_s']:.3f} GB/s of edge "
+        f"arrays, host fill included); the pinned copy alone "
+        f"{copy_ms:.3f} ms ({out['copy_gb_per_s']:.2f} GB/s); solve "
+        f"bit-equal [{CARD_NAME}]")
+    return out
+
+
+def log_profile(what: str, prof: dict, spans: dict, rounds: int):
+    """One line a phase: the profiled round 0 beside the solve's profiled
+    span of that phase (summed over its ``rounds`` rounds)."""
+    for name, rec in prof["phases"].items():
+        span = (spans or {}).get(f"repro.{name}", {})
+        log(f"  roofline {what} {name}: wall {rec['wall_s'] * 1e3:.3f} ms, "
+            f"{rec['bytes_accessed']} B, {rec['flops']} flops "
+            f"(kernels {rec['kernel_bytes']} B, {rec['kernel_flops']} ops, "
+            f"launches {rec['kernel_launches']}; {rec['torch_ops']} torch "
+            f"ops), {rec['dominant']}-bound, roofline "
+            f"{rec['roofline_s'] * 1e3:.4f} ms, share {rec['bound_share']}"
+            f"; the solve's device span over its {rounds} rounds "
+            f"{span.get('device_ms')} ms, busy {span.get('device_busy_ms')}"
+            f" ms [{CARD_NAME}]")
+
+
+def rama_cell_inputs(cell, gen):
+    """Inputs of a rama-multicut cell from a seed: a grid of n_nodes padded
+    to n_edges for a round, random triangles over random costs for MP."""
+    d = cell.dims
+    if cell.kind == "solver":
+        side = int(round(d["n_nodes"] ** 0.5))
+        return tuple(graph.grid_instance(side, side, seed=0,
+                                         pad_edges=d["n_edges"],
+                                         device=DEV))
+    E, T = d["n_edges"], d["n_triangles"]
+    tri = torch.randint(0, E, (T, 3), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    return (torch.randn(E, generator=gen, device=DEV),
+            torch.ones(E, dtype=torch.bool, device=DEV), tri,
+            torch.ones(T, dtype=torch.bool, device=DEV))
+
+
+def phase8_roofline(main: dict, dense: dict, dense_grid, gen,
+                    rehearse: bool) -> dict:
+    """(e) ``profile_solve_round`` on the main path's grid (sparse) and on
+    phase 6's grid on the dense path, with the card's Hardware entry; then
+    each rama-multicut cell's step, timed, with its model-FLOPs rate."""
+    card = CARD_NAME.split(",")[0].strip()
+    check(DEV.type != "cuda" or card == roofline.HW.name,
+          f"the card is {card!r}, the roofline's Hardware entry "
+          f"{roofline.HW.name!r}")
+    out = {}
+    prof = roofline.profile_solve_round(main["_inst"], api.SolverConfig())
+    log_profile("main path (sparse)", prof,
+                main.get("profile", {}).get("phases"), main["rounds"])
+    out["main"] = prof
+    out["round_launches"] = {
+        k: sum(rec["kernel_launches"][k] for rec in prof["phases"].values())
+        for k in ("triangle_mp", "cycle_intersect")}
+    h, w = dense_grid
+    inst = graph.grid_instance(h, w, seed=0,
+                               pad_edges=grid_edges(h, w) + 4 * 256,
+                               device=DEV)
+    prof = roofline.profile_solve_round(
+        inst, api.SolverConfig(graph_impl="dense"))
+    log_profile(f"{h}x{w} dense", prof, dense.get("profile", {}).get(
+        "phases"), dense.get("runs", {}).get("pd", {}).get(
+        "dense", {}).get("rounds"))
+    out["dense"] = prof
+    arch = get_arch("rama-multicut")
+    cells = {}
+    for name in ("pd_round_sm", "pd_round_lg", "mp_sweep_1m"):
+        cell = arch.shapes[name]
+        if rehearse:
+            cell = dataclasses.replace(cell, dims=RAMA_REHEARSE[name])
+        args = rama_cell_inputs(cell, gen)
+        step = arch.step_fn(cell)
+        reset_counters()
+        out_t = step(*args)
+        sync()
+        launches = all_launches()
+        check(all(torch.isfinite(t).all() for t in out_t
+                  if t.is_floating_point()),
+              f"{name}: non-finite outputs")
+        check(DEV.type != "cuda" or name != "mp_sweep_1m"
+              or launches["triangle_mp"] > 0,
+              f"{name} did not launch triangle_mp: {launches}")
+        ms = cuda_ms(lambda: step(*args), 5, 1)
+        flops = arch.model_flops(cell)
+        cells[name] = dict(dims=cell.dims, launches=launches, ms=ms,
+                           model_flops=flops,
+                           model_tflop_per_s=flops / ms / 1e9)
+        log(f"  rama-multicut {name} {cell.dims}: {ms:.4f} ms (median of 5),"
+            f" model FLOPs {flops:.4g} -> {flops / ms / 1e9:.4f} TFLOP/s, "
+            f"launches {launches} [{CARD_NAME}]")
+    out["cells"] = cells
+    return out
+
+
+def phase_trace(main: dict, dense: dict, gen, rehearse: bool) -> dict:
+    t0 = time.perf_counter()
+    max_neg = api.SolverConfig().max_neg
+    key = "rehearse" if rehearse else "card"
+    dense_grid = DENSE_GRID[key]
+    out = dict(traced_main=phase8_traced_main(main))
+    out["traced_modes"] = phase8_traced_modes(*dense_grid, max_neg)
+    out["table1"] = phase8_table1(*TABLE1[key], main)
+    out["ingest"] = phase8_ingest(main, INGEST_CHUNK[key])
+    out["roofline"] = phase8_roofline(main, dense, dense_grid, gen, rehearse)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 8 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -1895,7 +2248,7 @@ def main_path_cases(main: dict, gen) -> dict:
 
 
 def kernel_line(cases: dict, main_cases: dict, main: dict,
-                lm: dict, dense: dict, served: dict) -> dict:
+                lm: dict, dense: dict, served: dict, traced: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
         if name == "contract_matmul":
@@ -1981,6 +2334,12 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             library_note=(None if name == "triangle_mp" else
                           "torch.searchsorted: the search half only"),
             engine_launches=served["stream"]["launches"][name],
+            traced_launches=traced["traced_main"]["launches"][name],
+            profiled_round_launches=traced["roofline"]["round_launches"][
+                name],
+            mp_sweep_1m_launches=traced["roofline"]["cells"][
+                "mp_sweep_1m"]["launches"][name],
+            work=head["work"],
             device_us_per_launch=prof.get("kernels", {}).get(
                 name, {}).get("device_us_per_launch"),
             **extra, cases=every))
@@ -2045,8 +2404,12 @@ def main(argv=None) -> int:
         log("phase 7: the solve server")
         record["serve"] = phase_serve(args.rehearse,
                                       api.SolverConfig().max_neg)
+        log("phase 8: solve traces, Table 1, streamed ingest, roofline")
+        record["trace"] = phase_trace(main_rec, record["dense"], gen,
+                                      args.rehearse)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
-                           record["dense"], record["serve"])
+                           record["dense"], record["serve"],
+                           record["trace"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2054,7 +2417,8 @@ def main(argv=None) -> int:
         print("chip_smoke: rehearsal finished on the CPU; no result",
               file=sys.stderr)
         return 3
-    del record["main_path"]["main_shapes"]
+    for k in ("main_shapes", "_inst", "_result"):
+        del record["main_path"][k]
     record.update(line)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -48,9 +48,13 @@ queued; :func:`tree_ready` queries it without blocking.
 Ported: modes ``p``, ``pd``, ``pd+`` and ``d`` on both separation data
 paths (``graph_impl="dense"``, ``"sparse"``, and ``"auto"``, which picks
 dense up to ``sparse_threshold`` padded nodes); batches; delta solves,
-exact and warm. Traces (``trace=True``), ``state_shards``,
-``separation_shards > 1`` and a clamped ``batch_shards > 1`` raise
-``NotImplementedError`` naming their ROADMAP item.
+exact and warm; traces: ``solve(trace=True)``,
+``compiled_solve(trace=True)`` and ``Multicut.solve(trace=True)`` return
+``(SolveResult, SolveTrace)`` (:mod:`repro_torch.obs.trace`) through their
+own registry entry, bit-identical to the untraced solve; delta kinds take
+no trace. ``state_shards``, ``separation_shards > 1`` and a clamped
+``batch_shards > 1`` raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -238,8 +242,8 @@ def _make_registry(maxsize: int):
         "solve" takes an instance; "delta-open" takes an instance and
         returns (result, DeltaState); "delta"/"delta-warm" take
         (DeltaState, DeltaPatch) and return (result, DeltaState,
-        PatchInfo). ``traced`` selects the telemetry-carrying solve, not
-        ported yet (it raises at call, naming its item)."""
+        PatchInfo). ``traced`` selects the telemetry-carrying solve,
+        which returns (SolveResult, SolveTrace)."""
         if traced and kind != "solve":
             raise ValueError(f"trace=True applies to kind='solve' "
                              f"callables only (got kind={kind!r})")
@@ -391,7 +395,11 @@ def solve(inst: MulticutInstance, mode: str | None = None,
     instance is moved there if it lies elsewhere). ``graph_impl`` overrides
     the config's data path; ``tune_sparse_caps=True`` picks
     ``sparse_row_cap_short`` from the instance's p95 attractive degree
-    (results are identical for any cap)."""
+    (results are identical for any cap). ``trace=True`` returns
+    ``(SolveResult, SolveTrace)`` from its own registry entry: per-round
+    telemetry written on the device with no extra host sync, the result
+    bit-identical to the untraced solve's; digest it with
+    :func:`repro_torch.obs.summarize`."""
     mode, config, backend = _normalize(mode, config, backend, preset,
                                        graph_impl)
     inst = _on(inst, device)

@@ -1,6 +1,7 @@
-"""LM half of the architecture registry (port of the JAX package's
-``configs/base.py``): every dense LM config is a selectable arch with
-its shapes, its serving steps and its analytic model FLOPs.
+"""Architecture registry of the port (after the JAX package's
+``configs/base.py``): every dense LM config, and the RAMA multicut config
+(``configs/rama_multicut.py``), is a selectable arch with its shapes, its
+steps and its analytic model FLOPs.
 
     arch = get_arch("gemma2-9b")
     prefill = arch.step_fn(arch.shapes["prefill_32k"])   # (params, tokens)
@@ -23,19 +24,19 @@ from repro_torch.models import transformer as tfm
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str          # train | prefill | decode
+    kind: str          # train | prefill | decode | solver | mp | dist
     dims: dict
 
 
-REGISTRY: dict[str, "LMArch"] = {}
+REGISTRY: dict[str, object] = {}
 
 
-def register(arch: "LMArch") -> "LMArch":
+def register(arch):
     REGISTRY[arch.id] = arch
     return arch
 
 
-def get_arch(arch_id: str) -> "LMArch":
+def get_arch(arch_id: str):
     import repro_torch.configs  # noqa: F401  (triggers registration)
     return REGISTRY[arch_id]
 

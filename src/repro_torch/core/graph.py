@@ -166,6 +166,114 @@ def make_instance(u, v, cost, num_nodes: int, pad_edges: int | None = None,
                               for a in (uu, vv, cc, ev, nv)))
 
 
+def to_host_edges(inst: MulticutInstance):
+    """Valid edges as host numpy arrays (u int32, v int32, cost float32),
+    in edge-id order: one copy of each leaf to the host."""
+    ev = inst.edge_valid.cpu().numpy()
+    return (inst.u.cpu().numpy()[ev], inst.v.cpu().numpy()[ev],
+            inst.cost.cpu().numpy()[ev])
+
+
+class StreamStats(NamedTuple):
+    """Host-memory accounting of :func:`make_instance_streamed`: the
+    ingest never holds more than one edge range plus one chunk of COO on
+    the host."""
+    n_chunks: int           # COO chunks consumed
+    n_edges: int            # valid edges ingested
+    peak_host_elems: int    # max host-resident edge slots at any instant
+                            # (range buffer + in-flight chunk)
+
+
+def make_instance_streamed(chunks, num_nodes: int, pad_edges: int,
+                           state_shards: int = 1,
+                           pad_nodes: int | None = None, device=None,
+                           ) -> tuple[MulticutInstance, StreamStats]:
+    """Streaming instance ingest: build the padded edge arrays from an
+    iterable of COO ``(u, v, cost)`` chunks, so the edge list is never
+    materialised a second time on the host.
+
+    ``chunks`` yields host arrays in final edge-id order; the input must be
+    **duplicate-free** (merging parallel edges across chunks needs the
+    whole list; :func:`make_instance` merges duplicates). Each chunk is
+    validated like ``make_instance`` (id range, self-loop costs).
+
+    Edges are copied into one reusable host buffer of ``pad_edges`` slots
+    (pinned when the target is a CUDA device), which is then copied to
+    ``device`` in one asynchronous transfer per leaf. Peak host memory is
+    the buffer plus one chunk (returned in :class:`StreamStats`). One state
+    shard only: ``state_shards > 1`` (one buffer per edge range, each
+    shipped to its card) is ROADMAP Queue 1 item 13.
+    """
+    if state_shards is not None and state_shards > 1:
+        raise NotImplementedError(
+            f"make_instance_streamed: state_shards={state_shards} is not "
+            f"ported yet (sharded ingest is ROADMAP Queue 1 item 13)")
+    check_edge_addressing(pad_edges, where="make_instance_streamed")
+    dev = resolve_device(device)
+    pin = dev.type == "cuda"
+    bufs = [torch.zeros(pad_edges, dtype=dt, pin_memory=pin)
+            for dt in (torch.int32, torch.int32, torch.float32, torch.bool)]
+    buf_u, buf_v, buf_c, buf_ev = (b.numpy() for b in bufs)
+    n_edges = 0
+    n_chunks = 0
+    peak = 0
+    for cu, cv, cc in chunks:
+        cu = np.asarray(cu, dtype=np.int32)
+        cv = np.asarray(cv, dtype=np.int32)
+        cc = np.asarray(cc, dtype=np.float32)
+        if not (cu.shape == cv.shape == cc.shape and cu.ndim == 1):
+            raise ValueError(
+                f"chunk {n_chunks}: u/v/cost must be 1-D arrays of equal "
+                f"length; got shapes {cu.shape}, {cv.shape}, {cc.shape}")
+        if len(cu) and (cu.min() < 0 or cv.min() < 0
+                        or max(cu.max(), cv.max()) >= num_nodes):
+            raise ValueError(f"chunk {n_chunks}: node ids must lie in "
+                             f"[0, {num_nodes})")
+        if len(cu) and np.any((cu == cv) & (cc != 0.0)):
+            raise ValueError(f"chunk {n_chunks}: self-loops must have zero "
+                             f"cost (see make_instance)")
+        if n_edges + len(cu) > pad_edges:
+            raise ValueError(
+                f"streamed edges exceed pad_edges={pad_edges}; raise the "
+                f"pad (round_up_edges helps pick one)")
+        n_chunks += 1
+        peak = max(peak, pad_edges + len(cu))
+        sl = slice(n_edges, n_edges + len(cu))
+        np.minimum(cu, cv, out=buf_u[sl])
+        np.maximum(cu, cv, out=buf_v[sl])
+        buf_c[sl] = cc
+        buf_ev[sl] = True
+        n_edges += len(cu)
+    u, v, c, ev = (b.to(dev, non_blocking=pin) for b in bufs)
+    Np = pad_nodes if pad_nodes is not None else num_nodes
+    nv = torch.zeros(Np, dtype=torch.bool, device=dev)
+    nv[:num_nodes] = True
+    inst = MulticutInstance(u=u, v=v, cost=c, edge_valid=ev, node_valid=nv)
+    return inst, StreamStats(n_chunks=n_chunks, n_edges=n_edges,
+                             peak_host_elems=peak)
+
+
+def round_up_edges(num_edges: int, state_shards: int = 1,
+                   blocks: int = 16) -> int:
+    """Smallest pad_edges >= num_edges divisible by ``blocks`` (the
+    reference's S-invariant blocked-reduction ranges) and by
+    ``state_shards``: the pad a sharded solve can take."""
+    q = math.lcm(max(1, int(blocks)), max(1, int(state_shards)))
+    return ((max(1, num_edges) + q - 1) // q) * q
+
+
+def to_networkx(inst: MulticutInstance):
+    """The instance's valid nodes and edges as a ``networkx.Graph`` with
+    the costs as ``weight`` (networkx is imported here, on use)."""
+    import networkx as nx
+    g = nx.Graph()
+    g.add_nodes_from(range(int(inst.node_valid.sum())))
+    u, v, c = to_host_edges(inst)
+    for a, b, w_ in zip(u.tolist(), v.tolist(), c.tolist()):
+        g.add_edge(a, b, weight=w_)
+    return g
+
+
 def attractive_degree_p95(inst: MulticutInstance, floor: int = ROW_CAP_FLOOR,
                           cap: int = 128) -> int:
     """Host-side p95 of the per-node attractive (cost > 0) degree over

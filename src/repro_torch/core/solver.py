@@ -36,6 +36,7 @@ from repro_torch.core.graph import (
     csr_from_instance, resolve_graph_impl,
 )
 from repro_torch.core.message_passing import mp_phase_per_edge
+from repro_torch.obs.trace import init_trace, trace_set_round
 
 MODES = ("p", "pd", "pd+", "d")
 # "cuda" = the hand-written kernels (the default; on a CPU tensor each
@@ -131,13 +132,20 @@ class SolverState(NamedTuple):
 
 def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
                      with45: bool, mp=None, intersect=None, csr=None,
-                     update_csr: bool = False, node_mask=None):
+                     update_csr: bool = False, node_mask=None,
+                     with_aux: bool = False):
     """One separation + message-passing round. Returns (inst', c_rep, lb,
     csr') — ``csr'`` is the chord-spliced all-edges CSR when
     ``update_csr`` (sparse path), else None. ``node_mask`` restricts the
     round's repulsive edges to a frontier. The ``repro.*`` ranges name
     the round's phases in a torch.profiler trace, as the reference's
-    ``jax.named_scope``s do in its HLO."""
+    ``jax.named_scope``s do in its HLO.
+
+    ``with_aux`` appends a telemetry tuple ``(n_cycles,
+    mp_improvement)``: conflicted cycles found by separation, and the LB
+    gain of the MP phase over the trivial bound Σ_e min(0, c) on the
+    round's pre-MP costs. Both only read what the round produced; the sum
+    is a ``torch.sum`` that feeds no decision."""
     with record_function("repro.separation"):
         sep = separate(inst, max_neg=cfg.max_neg,
                        max_tri_per_edge=cfg.max_tri_per_edge,
@@ -156,7 +164,13 @@ def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
     with record_function("repro.message_passing"):
         _, c_rep, lb = mp(inst2.cost, inst2.edge_valid, sep.triangles.edges,
                           sep.triangles.valid, cfg.mp_iters)
-    return inst2, c_rep, lb, sep.csr
+    if not with_aux:
+        return inst2, c_rep, lb, sep.csr
+    n_cyc = sep.triangles.valid.sum().to(torch.int32)
+    trivial_lb = torch.where(inst2.edge_valid,
+                             torch.clamp(inst2.cost, max=0.0),
+                             torch.zeros_like(inst2.cost)).sum()
+    return inst2, c_rep, lb, sep.csr, (n_cyc, lb - trivial_lb)
 
 
 def _contraction_set(inst: MulticutInstance, cfg: SolverConfig):
@@ -172,50 +186,68 @@ def _primal_round_core(inst: MulticutInstance, cfg: SolverConfig):
 
 
 def fused_pd_round(inst: MulticutInstance, cfg: SolverConfig, with45: bool,
-                   mp=None, intersect=None, node_mask=None):
+                   mp=None, intersect=None, node_mask=None,
+                   with_aux: bool = False):
     """Alg. 3 lines 3–8 as one unit: separation → message passing →
-    reparametrise → contract. Returns (ContractionResult, lb)."""
-    inst2, c_rep, lb, _ = _dual_round_core(inst, cfg, with45, mp,
-                                           intersect, node_mask=node_mask)
-    return _primal_round_core(inst2._replace(cost=c_rep), cfg), lb
+    reparametrise → contract. Returns (ContractionResult, lb), plus the
+    telemetry aux of :func:`_dual_round_core` when ``with_aux``."""
+    out = _dual_round_core(inst, cfg, with45, mp, intersect,
+                           node_mask=node_mask, with_aux=with_aux)
+    res = _primal_round_core(out[0]._replace(cost=out[1]), cfg)
+    return (res, out[2], out[4]) if with_aux else (res, out[2])
 
 
 def _dense_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
-                       mp=None, intersect=None, node_mask=None):
+                       mp=None, intersect=None, node_mask=None,
+                       with_aux: bool = False):
     """:func:`fused_pd_round` in the shape of :func:`fused_pd_round_state`
     (the dense path carries no CSR)."""
-    res, lb = fused_pd_round(state.instance, cfg, with45, mp, intersect,
-                             node_mask)
+    out = fused_pd_round(state.instance, cfg, with45, mp, intersect,
+                         node_mask, with_aux)
+    res = out[0]
     state2 = SolverState(instance=res.instance, csr=None,
                          mapping=res.mapping[state.mapping.long()])
-    return state2, lb, res
+    return (state2, out[1], res) + out[2:]
 
 
 def fused_pd_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
-                         mp=None, intersect=None, node_mask=None):
+                         mp=None, intersect=None, node_mask=None,
+                         with_aux: bool = False):
     """The state-carrying PD round (sparse data path): separation reads the
     carried CSR, contraction maintains it, and the original→cluster mapping
-    composes. Returns (SolverState', lb, ContractionResult)."""
-    inst2, c_rep, lb, _ = _dual_round_core(state.instance, cfg, with45,
-                                           mp, intersect, csr=state.csr,
-                                           node_mask=node_mask)
-    inst3 = inst2._replace(cost=c_rep)
+    composes. Returns (SolverState', lb, ContractionResult), plus the
+    telemetry aux of :func:`_dual_round_core` when ``with_aux``."""
+    out = _dual_round_core(state.instance, cfg, with45, mp, intersect,
+                           csr=state.csr, node_mask=node_mask,
+                           with_aux=with_aux)
+    inst3 = out[0]._replace(cost=out[1])
     with record_function("repro.contraction"):
         res, csr2 = contract_csr(inst3, _contraction_set(inst3, cfg))
     state2 = SolverState(instance=res.instance, csr=csr2,
                          mapping=res.mapping[state.mapping.long()])
-    return state2, lb, res
+    return (state2, out[2], res) + out[4:]
 
 
-def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig):
+def _live_edges1(inst: MulticutInstance) -> torch.Tensor:
+    """(1,) i32 live-edge count: the S = 1 row of SolveTrace.shard_edges."""
+    return inst.edge_valid.sum().to(torch.int32).reshape(1)
+
+
+def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig,
+                    trace: bool = False):
     """Purely primal Algorithm 1 loop (paper's P): contract until a round
     contracts nothing or ``max_rounds`` — one host sync per round. There is
-    no dual: the lower bound and its history stay -inf."""
+    no dual: the lower bound and its history stay -inf.
+
+    ``trace`` also fills a :class:`SolveTrace` row a round (objective,
+    contraction and cluster counts, live edges) and returns
+    ``(SolveResult, SolveTrace)``; its writes stay on the device."""
     N, R = inst.num_nodes, cfg.max_rounds
     dev = inst.device
     mapping = torch.arange(N, dtype=torch.int32, device=dev)
     hist_nc = torch.zeros((R,), dtype=torch.int32, device=dev)
     hist_nk = torch.zeros((R,), dtype=torch.int32, device=dev)
+    tr = init_trace(R, device=dev) if trace else None
     cur = inst
     r = 0
     while r < R:
@@ -224,20 +256,26 @@ def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig):
         hist_nk[r] = res.n_new.to(torch.int32)
         mapping = res.mapping[mapping.long()]
         cur = res.instance
+        if trace:
+            trace_set_round(tr, r, objective=inst.objective(mapping),
+                            n_contracted=hist_nc[r], n_clusters=hist_nk[r],
+                            shard_edges=_live_edges1(cur))
         r += 1
         if int(res.n_contracted) == 0:
             break
     ninf = float("-inf")
-    return SolveResult(
+    out = SolveResult(
         labels=mapping, objective=inst.objective(mapping),
         lower_bound=torch.tensor(ninf, dtype=torch.float32, device=dev),
         rounds=torch.tensor(r, dtype=torch.int32, device=dev),
         lb_history=torch.full((R,), ninf, dtype=torch.float32, device=dev),
         n_contracted=hist_nc, n_clusters=hist_nk)
+    return (out, tr) if trace else out
 
 
 def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
-                     mp=None, intersect=None, csr0=None, sep_mask0=None):
+                     mp=None, intersect=None, csr0=None, sep_mask0=None,
+                     trace: bool = False):
     """Interleaved primal-dual Algorithm 3 (paper's PD / PD+) on either data
     path. The sparse path runs the :class:`SolverState` recursion:
     ``build_csr`` once, before round 0, and every later round reads the CSR
@@ -250,7 +288,13 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
     Delta re-solves seed the solve: ``csr0`` is a live all-edges CSR of
     ``inst`` that replaces the sparse path's initial ``build_csr`` (the
     dense path has no CSR to carry and ignores it), and ``sep_mask0``
-    restricts round 0's separation to a frontier on both paths."""
+    restricts round 0's separation to a frontier on both paths.
+
+    ``trace`` also fills a :class:`SolveTrace` row a round (bound,
+    objective of the labelling after the round, cycles, contraction and
+    cluster counts, MP gain, live edges) and returns ``(SolveResult,
+    SolveTrace)``. Its writes and its one extra reduction a round (the
+    objective) stay on the device: no extra host sync."""
     N, R = inst.num_nodes, cfg.max_rounds
     dev = inst.device
     with45_first = cfg.always_cycles45 or plus or cfg.first_round_cycles45
@@ -268,34 +312,43 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
                          device=dev)
     hist_nc = torch.zeros((R,), dtype=torch.int32, device=dev)
     hist_nk = torch.zeros((R,), dtype=torch.int32, device=dev)
+    tr = init_trace(R, device=dev) if trace else None
     lb0 = None
     r = 0
     while r < R:
-        state, lb, res = step(state, cfg,
-                              with45_first if r == 0 else with45_rest,
-                              mp, intersect,
-                              node_mask=sep_mask0 if r == 0 else None)
+        out = step(state, cfg, with45_first if r == 0 else with45_rest,
+                   mp, intersect, node_mask=sep_mask0 if r == 0 else None,
+                   with_aux=trace)
+        state, lb, res = out[:3]
         if r == 0:
             lb0 = lb
         hist_lb[r] = lb
         hist_nc[r] = res.n_contracted.to(torch.int32)
         hist_nk[r] = res.n_new.to(torch.int32)
+        if trace:
+            n_cyc, mp_gain = out[3]
+            trace_set_round(tr, r, lower_bound=hist_lb[r],
+                            objective=inst.objective(state.mapping),
+                            n_cycles=n_cyc, n_contracted=hist_nc[r],
+                            n_clusters=hist_nk[r], mp_improvement=mp_gain,
+                            shard_edges=_live_edges1(state.instance))
         r += 1
         if int(res.n_contracted) == 0:
             break
     labels = state.mapping
-    return SolveResult(labels=labels, objective=inst.objective(labels),
-                       lower_bound=lb0.to(torch.float32),
-                       rounds=torch.tensor(r, dtype=torch.int32, device=dev),
-                       lb_history=hist_lb, n_contracted=hist_nc,
-                       n_clusters=hist_nk)
+    res = SolveResult(labels=labels, objective=inst.objective(labels),
+                      lower_bound=lb0.to(torch.float32),
+                      rounds=torch.tensor(r, dtype=torch.int32, device=dev),
+                      lb_history=hist_lb, n_contracted=hist_nc,
+                      n_clusters=hist_nk)
+    return (res, tr) if trace else res
 
 
 def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, mp=None,
-                    intersect=None):
+                    intersect=None, trace: bool = False):
     """Dual-only solver (paper's D): ``dual_rounds`` rounds of separation +
     message passing on the original graph; the LB is monotone across
-    rounds. Returns (SolveResult, final instance).
+    rounds. Returns (SolveResult, final instance, SolveTrace or None).
 
     LB accounting: the MP phase returns lb_r = edgeLB_r + triLB_r; the
     triangle parts add up across rounds and only the last round's edge
@@ -305,7 +358,12 @@ def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, mp=None,
     differ between devices. On the sparse path the
     all-edges CSR is built once and each round's fresh chords are spliced
     in (``update_csr``); the dense path has no CSR. A fixed number of
-    rounds: no exit sync."""
+    rounds: no exit sync.
+
+    With ``trace`` the rounds' cycle counts and MP gains are kept as
+    tensors and the trace is assembled after the loop, as the reference
+    assembles its scan's outputs; D has no primal, so the objective rows
+    stay padding."""
     R = cfg.dual_rounds
     N = inst.num_nodes
     dev = inst.device
@@ -315,10 +373,12 @@ def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, mp=None,
     cur = inst
     tri_lb_sum = torch.zeros((), dtype=torch.float32, device=dev)
     per_round = []
+    aux = []
     for _ in range(R):
-        cur2, c_rep, lb, csr = _dual_round_core(cur, cfg, True, mp,
-                                                intersect, csr=csr,
-                                                update_csr=sparse)
+        out = _dual_round_core(cur, cfg, True, mp, intersect, csr=csr,
+                               update_csr=sparse, with_aux=trace)
+        cur2, c_rep, lb, csr = out[:4]
+        aux.extend(out[4:])
         edge_lb = torch.where(cur2.edge_valid,
                               torch.clamp(c_rep, max=0.0),
                               torch.zeros_like(c_rep)).sum()
@@ -336,7 +396,17 @@ def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, mp=None,
         lb_history=lb_history,
         n_contracted=torch.zeros((R,), dtype=torch.int32, device=dev),
         n_clusters=n_nodes.expand(R).clone())
-    return res, cur
+    tr = None
+    if trace:
+        tr = init_trace(R, device=dev)._replace(
+            rounds=torch.full((), R, dtype=torch.int32, device=dev),
+            lower_bound=lb_history.clone(),
+            n_cycles=torch.stack([c for c, _ in aux]),
+            mp_improvement=torch.stack([g for _, g in aux]).to(
+                torch.float32),
+            n_clusters=res.n_clusters.clone(),
+            shard_edges=_live_edges1(inst).expand(R, 1).clone())
+    return res, cur, tr
 
 
 def solve_device(inst: MulticutInstance, mode: str = "pd",
@@ -344,19 +414,22 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
                  mp=None, intersect=None, trace: bool = False, csr=None,
                  sep_node_mask=None):
     """Solve on the instance's device: every mode on both data paths
-    (``cfg.graph_impl``). What is not ported yet raises
-    ``NotImplementedError`` naming its ROADMAP item.
+    (``cfg.graph_impl``). The sharded solves (``state_shards``,
+    ``separation_shards > 1``) raise ``NotImplementedError`` naming their
+    ROADMAP item.
 
     ``csr``/``sep_node_mask`` seed delta re-solves in modes pd and pd+
-    (see :func:`_solve_pd_device`); modes p and d ignore both."""
+    (see :func:`_solve_pd_device`); modes p and d ignore both.
+
+    ``trace=True`` returns ``(SolveResult, SolveTrace)``: per-round
+    telemetry (:mod:`repro_torch.obs.trace`) written on the device as the
+    rounds run, with no extra host sync; the result is bit-identical to
+    the untraced solve's."""
     if cfg.graph_impl not in GRAPH_IMPLS:
         raise ValueError(f"unknown graph_impl {cfg.graph_impl!r}; expected "
                          f"one of {GRAPH_IMPLS}")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    if trace:
-        raise NotImplementedError(
-            "trace=True is not ported yet (ROADMAP Queue 1 item 9)")
     if cfg.state_shards and (csr is not None or sep_node_mask is not None):
         raise ValueError("state_shards does not take warm-start seeds "
                          "(csr/sep_node_mask): the carried CSR is "
@@ -370,9 +443,37 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
             "separation_shards > 1 is not ported yet (ROADMAP Queue 1 "
             "item 13)")
     if mode == "p":
-        return _solve_p_device(inst, cfg)
+        return _solve_p_device(inst, cfg, trace=trace)
     if mode == "d":
-        return _solve_d_device(inst, cfg, mp, intersect)[0]
+        res, _, tr = _solve_d_device(inst, cfg, mp, intersect, trace=trace)
+        return (res, tr) if trace else res
     return _solve_pd_device(inst, cfg, plus=(mode == "pd+"), mp=mp,
                             intersect=intersect, csr0=csr,
-                            sep_mask0=sep_node_mask)
+                            sep_mask0=sep_node_mask, trace=trace)
+
+
+# ---------------------------------------------------------------------------
+# Round entry points of the arch config (configs/rama_multicut.py)
+# ---------------------------------------------------------------------------
+
+def _dual_round(inst: MulticutInstance, mp_iters: int, max_neg: int,
+                max_tri_per_edge: int, nbr_k: int, with_cycles45: bool,
+                mp=None, intersect=None):
+    """One separation + message-passing round on the dense data path (the
+    reference's ``separate`` default). Returns (inst', c_rep, lb).
+    ``mp``/``intersect`` are the phase functions :func:`resolve_mp` and
+    :func:`resolve_intersect` give (the per-edge MP by default)."""
+    cfg = SolverConfig(mp_iters=mp_iters, max_neg=max_neg,
+                       max_tri_per_edge=max_tri_per_edge, nbr_k=nbr_k,
+                       graph_impl="dense")
+    return _dual_round_core(inst, cfg, with_cycles45, mp, intersect)[:3]
+
+
+def _primal_round(inst: MulticutInstance, matching_rounds: int,
+                  forest_rounds: int, switch_frac: float,
+                  contract_frac: float = 0.0):
+    """One contraction round: the contraction set, then ``contract``.
+    Returns the ContractionResult."""
+    return _primal_round_core(inst, SolverConfig(
+        matching_rounds=matching_rounds, forest_rounds=forest_rounds,
+        switch_frac=switch_frac, contract_frac=contract_frac))

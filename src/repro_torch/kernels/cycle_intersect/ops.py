@@ -7,9 +7,12 @@ Routes by the tensors' device: CUDA tensors launch the hand-written kernel
 counts kernel launches and ``shapes`` the (R, W, Wj) of each nonempty call
 on either device, so a run can show which shapes its path gave the
 kernel. No host padding:
-the kernel takes any R, W and Wj.
+the kernel takes any R, W and Wj. ``work`` gives one launch's ops and
+bytes from its shape.
 """
 from __future__ import annotations
+
+import math
 
 from collections import Counter
 
@@ -63,3 +66,11 @@ def intersect_rows(ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
     launches += 1
     shapes[(R, W, Wj)] += 1
     return out
+
+
+def work(R: int, W: int, Wj: int) -> tuple[int, int]:
+    """(integer ops, bytes) of one launch on (R, W) × (R, Wj) int32: both
+    inputs read and the (R, W) output written once; one upper-bound search
+    of ceil(log2(Wj + 1)) compares per element, 2 ops each (compare and
+    select)."""
+    return 2 * R * W * math.ceil(math.log2(Wj + 1)), 4 * (2 * R * W + R * Wj)

@@ -14,6 +14,12 @@ one block), else ``iters`` pass launches and one landing launch.
 ``shapes`` counts the T of each nonempty call on either device, so a run
 can show which shapes its path gave the kernels. There is no padding:
 the kernels mask their own ragged tails.
+
+``sweep_work`` and ``work`` give the float ops and bytes one call's
+kernel launches need (each input byte read once, each output byte written
+once): what a roofline bound or a profile's accounting counts for a
+kernel that launches through ``ctypes``, out of sight of PyTorch's
+dispatcher.
 """
 from __future__ import annotations
 
@@ -23,9 +29,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.triangle_mp.ref import lower_bound_terms, \
-    mp_phase_ref, mp_sweep_ref
+    mp_phase_ref, mp_plan, mp_sweep_ref
 
 FUSED_MAX_T = 2048      # the phase's two (T, 3) planes fit in 48 KB
+SWEEP_FLOPS = 50        # float ops of one triangle's sweep: 6 steps x ~8
 
 launches = 0
 shapes: Counter = Counter()     # T of each nonempty call
@@ -124,3 +131,32 @@ def mp_phase(cost: torch.Tensor, edge_valid: torch.Tensor,
         shapes[T] += 1
     return t_cost, c_rep, lower_bound_terms(c_rep, edge_valid, t_cost,
                                             tri_valid)
+
+
+def sweep_work(T: int) -> tuple[int, int]:
+    """(float ops, bytes) of one ``mp_sweep`` launch on (T, 3) float32:
+    the triangles read and written once, ~50 ops a triangle."""
+    return SWEEP_FLOPS * T, 24 * T
+
+
+def work(cost: torch.Tensor, tri: torch.Tensor, tri_valid: torch.Tensor,
+         iters: int) -> tuple[int, int]:
+    """(float ops, bytes) of the kernel launches of one ``mp_phase`` call
+    on these inputs, counted from what this data needs (it syncs to read
+    the plan's sizes; a host accounting function, not for the hot path).
+
+    Bytes: the row flags, the valid rows' edge ids, the sorted keys and
+    entries of their slots and the touched edges' costs read once, the
+    valid rows' costs and the touched edges' c_rep written once. Ops: each
+    pass a slot adds its segment's entries (+3: c + Σ, / deg, + t) and
+    the sweep takes ~50; the landing adds each segment once more."""
+    plan = mp_plan(cost, tri, tri_valid)
+    nv = int(tri_valid.sum())
+    seg = plan.length[plan.length > 0].long()
+    U = int(seg.numel())
+    slot_adds = int((seg * seg).sum())      # Σ over valid slots of deg
+    T = tri.shape[0]
+    bytes_moved = T + 12 * nv + 3 * nv * (4 + 8) + 4 * U + 12 * nv + 4 * U
+    ops = iters * (slot_adds + 9 * nv + SWEEP_FLOPS * nv) \
+        + int(seg.sum()) + U
+    return ops, bytes_moved

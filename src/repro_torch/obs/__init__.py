@@ -1,7 +1,8 @@
-"""repro_torch.obs: observability for the port's serving tier (the part of
-``repro.obs`` the engine uses; the solver trace, ``SolveTrace``, is not
-ported yet: ROADMAP Queue 1 item 9).
+"""repro_torch.obs: observability of the port (mirrors ``repro.obs``).
 
+* :mod:`.trace` — :class:`SolveTrace`, the per-round solver telemetry
+  ``api.solve(trace=True)`` returns, and :func:`summarize`, its host-side
+  digest.
 * :mod:`.spans` — :class:`SpanRecorder`, request-lifecycle spans with
   Chrome-trace / Perfetto JSON export.
 * :mod:`.metrics` — :class:`MetricsRegistry` of counters, gauges and
@@ -16,8 +17,11 @@ from __future__ import annotations
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, quantile_error_bound)
 from repro_torch.obs.spans import Span, SpanRecorder
+from repro_torch.obs.trace import (SolveTrace, init_trace, summarize,
+                                   trace_set_round)
 
 __all__ = [
+    "SolveTrace", "init_trace", "trace_set_round", "summarize",
     "Span", "SpanRecorder",
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "quantile_error_bound",

@@ -195,6 +195,50 @@ def test_wrappers_raise_on_unsupported_input():
             isect_ops.intersect_rows(cpu, meta.int())
 
 
+def _former_phase_work(cost, tri, valid, iters):
+    """``chip_smoke.py``'s bound arithmetic of the MP phase before it moved
+    into ``triangle_mp.ops.work``: (bytes, ops)."""
+    from repro_torch.kernels.triangle_mp.ref import mp_plan
+    plan = mp_plan(cost, tri, valid)
+    nv = int(valid.sum())
+    seg = plan.length[plan.length > 0].long()
+    U = int(seg.numel())
+    slot_adds = int((seg * seg).sum())
+    T = tri.shape[0]
+    bytes_moved = T + 12 * nv + 3 * nv * (4 + 8) + 4 * U + 12 * nv + 4 * U
+    ops = iters * (slot_adds + 9 * nv + 50 * nv) + int(seg.sum()) + U
+    return bytes_moved, ops
+
+
+@pytest.mark.parametrize("T,E,n_valid", [(1024, 5000, 128),
+                                         (2048, 5000, 256),
+                                         (1999, 5000, 1500),
+                                         (4099, 20000, 4099)])
+def test_kernel_work_equals_the_former_smoke_arithmetic(T, E, n_valid):
+    """Each solver kernel's ``work()`` (host arithmetic, so it runs without
+    a card) gives the ops and bytes ``chip_smoke.py`` computed inline
+    before: the MP phase on synthetic inputs of the phase-2 kinds, the
+    sweep and ``cycle_intersect`` at the phase-2 shapes."""
+    g = torch.Generator().manual_seed(T)
+    pool = torch.randperm(E, generator=g)[:max(3, 3 * n_valid // 2)]
+    tri = pool[torch.randint(0, pool.numel(), (T, 3), generator=g)] \
+        .to(torch.int32)
+    valid = torch.zeros(T, dtype=torch.bool)
+    valid[torch.randperm(T, generator=g)[:n_valid]] = True
+    tri = torch.where(valid[:, None], tri, torch.zeros_like(tri))
+    cost = torch.randn(E, generator=g)
+    for iters in (1, 5):
+        b, ops = _former_phase_work(cost, tri, valid, iters)
+        assert sweep_ops.work(cost, tri, valid, iters) == (ops, b)
+    assert sweep_ops.sweep_work(T) == (50 * T, 24 * T)
+    for R, W, Wj in [(256, 16, 16), (256, 128, 128), (1024, 4, 128),
+                     (300, 37, 129), (65536, 128, 128), (9, 1, 1),
+                     (8, 1, 20000), (32, 128, 128), (T, 4, E)]:
+        former = (2 * R * W * int(np.ceil(np.log2(Wj + 1))),
+                  4 * (2 * R * W + R * Wj))
+        assert isect_ops.work(R, W, Wj) == former, (R, W, Wj)
+
+
 # (B, Hq, Hkv, S, D, causal, window, softcap): gemma2's global and local
 # layers (GQA 16/8, D 256, softcap 50), MHA at D 96, MQA at D 128, S = 1,
 # ragged S, non-causal with and without a window; then chip_smoke.py's

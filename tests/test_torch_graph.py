@@ -218,3 +218,67 @@ def test_fixed_order_sums_are_sequential():
                                torch.from_numpy(is_entry), S)
     np.testing.assert_array_equal(
         _np(got), _sequential_reference(vals[is_entry], seg[is_entry], S))
+
+
+def _chunks(u, v, c, size):
+    for i in range(0, len(u), size):
+        yield u[i:i + size], v[i:i + size], c[i:i + size]
+
+
+def test_make_instance_streamed_equals_the_generator():
+    """Streaming a generator's host edges in chunks rebuilds its padded
+    instance leaf for leaf; peak host slots are the buffer plus one chunk;
+    the reference's ingest builds the same arrays."""
+    inst = tg.grid_instance(12, 13, seed=3, pad_edges=700, device=CPU)
+    u, v, c = tg.to_host_edges(inst)
+    assert (u.dtype, v.dtype, c.dtype) == (np.int32, np.int32, np.float32)
+    n = int(inst.edge_valid.sum())
+    got, stats = tg.make_instance_streamed(_chunks(u, v, c, 64), 156,
+                                           pad_edges=inst.num_edges,
+                                           device=CPU)
+    _same_instance(got, inst)
+    assert stats == tg.StreamStats(n_chunks=-(-n // 64), n_edges=n,
+                                   peak_host_elems=inst.num_edges + 64)
+    ji = jg.grid_instance(12, 13, seed=3, pad_edges=700)
+    jgot, jstats = jg.make_instance_streamed(
+        _chunks(*jg.to_host_edges(ji), 64), 156, pad_edges=700)
+    _same_instance(got, jgot)
+    assert tuple(stats) == tuple(jstats)
+    # chunks with v < u are oriented as make_instance orients them
+    flipped, _ = tg.make_instance_streamed(_chunks(v, u, c, 100), 156,
+                                           pad_edges=700, pad_nodes=160,
+                                           device=CPU)
+    _same_instance(flipped[:4], inst[:4])
+    assert flipped.num_nodes == 160 and int(flipped.node_valid.sum()) == 156
+
+
+def test_make_instance_streamed_validates():
+    ok = (np.array([0, 1]), np.array([1, 2]), np.array([1.0, -1.0]))
+    with pytest.raises(ValueError, match="exceed pad_edges"):
+        tg.make_instance_streamed([ok, ok], 3, pad_edges=3, device=CPU)
+    with pytest.raises(ValueError, match="node ids"):
+        tg.make_instance_streamed([ok], 2, pad_edges=4, device=CPU)
+    with pytest.raises(ValueError, match="self-loops"):
+        tg.make_instance_streamed([([1], [1], [2.0])], 3, pad_edges=4,
+                                  device=CPU)
+    with pytest.raises(ValueError, match="equal"):
+        tg.make_instance_streamed([([0, 1], [1], [2.0])], 3, pad_edges=4,
+                                  device=CPU)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tg.make_instance_streamed([ok], 3, pad_edges=4, state_shards=2,
+                                  device=CPU)
+
+
+def test_round_up_edges_and_networkx():
+    for args in [(1,), (16,), (17,), (100, 3), (100, 4, 16), (0,),
+                 (1000, 6, 8)]:
+        assert tg.round_up_edges(*args) == jg.round_up_edges(*args), args
+    nx = pytest.importorskip("networkx")
+    inst = tg.random_instance(12, 0.4, seed=1, pad_edges=64, device=CPU)
+    g = tg.to_networkx(inst)
+    jgraph = jg.to_networkx(jg.random_instance(12, 0.4, seed=1,
+                                               pad_edges=64))
+    assert isinstance(g, nx.Graph)
+    assert sorted(g.nodes) == sorted(jgraph.nodes)
+    assert sorted(g.edges(data="weight")) == \
+        sorted(jgraph.edges(data="weight"))

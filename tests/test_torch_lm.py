@@ -112,7 +112,7 @@ def test_configs_match_jax():
             assert tbase.LM_SHAPES[name].dims == shape.dims
             assert t.model_flops(tbase.LM_SHAPES[name]) == \
                 j.model_flops(shape)
-    assert set(tbase.REGISTRY) == set(LM_IDS)
+    assert set(tbase.REGISTRY) == set(LM_IDS) | {"rama-multicut"}
     assert get_arch("gemma2-9b").cfg.params_count == 10_158_908_928
     with pytest.raises(NotImplementedError, match="item 15"):
         get_arch("gemma2-9b").step_fn(tbase.LM_SHAPES["train_4k"])

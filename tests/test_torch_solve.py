@@ -82,17 +82,22 @@ def test_backends_and_facade_agree_on_cpu():
 
 
 def test_api_raises_for_unported_parts():
-    """What ROADMAP Queue 1 item 7 ported now runs: every mode on the
-    dense path (auto below 257 padded nodes) and mode p on the sparse
-    path. What is still unported raises, naming its item."""
+    """What ROADMAP Queue 1 items 7 and 9 ported now runs: every mode on
+    the dense path (auto below 257 padded nodes), mode p on the sparse
+    path, and the traced solve. What is still unported raises, naming its
+    item."""
     inst = tg.grid_instance(6, 6, seed=0, device="cpu")   # 36 nodes: dense
     for mode in ("p", "pd", "pd+", "d"):
         res = tapi.solve(inst, mode=mode, device="cpu")
         assert res.labels.shape == (36,) and int(res.rounds) >= 1
     res = tapi.solve(inst, mode="p", graph_impl="sparse", device="cpu")
     assert int(res.rounds) >= 1 and bool(res.lower_bound.isneginf())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tapi.solve(inst, graph_impl="sparse", trace=True, device="cpu")
+    res, tr = tapi.solve(inst, graph_impl="sparse", trace=True,
+                         device="cpu")
+    assert int(tr.rounds) == int(res.rounds) >= 1
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tapi.solve(inst, config=tapi.SolverConfig(state_shards=2),
+                   device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         tapi.solve(inst, backend="pallas", device="cpu")
     assert set(tapi.list_presets()) >= {"paper-pd", "paper-pd+", "pd-opt",
@@ -106,8 +111,10 @@ def test_api_raises_for_unported_parts():
 
 def test_port_imports_no_jax():
     """Importing the port (the solve server, delta solves, observability
-    and the batch and registry entry points included), and chip_smoke.py's
-    own imports, load no jax and no module of the JAX package."""
+    and the solve trace, the batch and registry entry points, the
+    baselines, the roofline profile and the multicut arch config
+    included), and chip_smoke.py's own imports, load no jax and no module
+    of the JAX package."""
     code = (
         "import sys, runpy\n"
         "import repro_torch.api, repro_torch.convert\n"
@@ -122,6 +129,8 @@ def test_port_imports_no_jax():
         "    solve_with_state, stack_instances, unstack_results, tree_ready,\n"
         "    compiled_solve, compiled_delta, trace_count, cache_info)\n"
         "from repro_torch.core.dist import resolve_batch_shards\n"
+        "import repro_torch.obs.trace, repro_torch.core.baselines\n"
+        "import repro_torch.roofline, repro_torch.configs.rama_multicut\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -146,6 +155,8 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 4" in out.stdout and '"ok"' not in out.stdout
     assert "phase 5" in out.stdout and "phase 6" in out.stdout
     assert "phase 7" in out.stdout and "exact tick" in out.stdout
+    assert "phase 8" in out.stdout and "streamed ingest" in out.stdout
+    assert "traced pd+ sparse: bit-equal" in out.stdout
     assert "labels equal True" in out.stdout
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
