@@ -140,6 +140,29 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    ``rama-multicut`` cells' steps (``pd_round_sm``, ``pd_round_lg``,
    ``mp_sweep_1m``, which must launch ``triangle_mp``) on inputs from a
    seed, timed, with their model-FLOPs rate.
+9. The edge-range-sharded solve and the block decomposition, last; the
+   process group it makes is destroyed before the summary lines. (a) On
+   an in-process NCCL group of one rank (a FileStore under
+   ``chiprun_out/``): the main path's grid padded by ``round_up_edges``
+   (2 609 168 slots) through ``preset="pd-state-sharded"`` (S = 1),
+   counters zeroed just before and read just after (``cycle_intersect``
+   must launch, ``triangle_mp`` once per MP phase), against the
+   replicated sparse solve of the same config: labels, rounds and
+   histories equal, objective and bound within 1e-5 relative, the
+   objective within 1e-5 of a float64 host recount, the bound below it;
+   the traced solve bit-equal with ``shard_*`` rows of width 1; walls of
+   both (medians of 3 after a warm-up), host syncs, peak memory, one
+   profiled sharded solve; each kernel held against its plain version at
+   any shape this path gave it that phase 3 did not. (b) Two child
+   processes on the same card over gloo (``repro_torch.launch.ranks``),
+   S = 2 on ``grid_instance(128, 128)``: each rank's result, untraced
+   and traced, bit-identical to S = 1 in this process, both kernels
+   launched in each rank; per-shard trace rows and walls. (c)
+   ``random_instance(400, 0.05, seed=3)`` cut into 8 blocks of 64 nodes:
+   the distributed round on the one-rank group, the quotient of the
+   contracted blocks solved, the bound below the replicated objective and
+   the quotient's lifted objective; the ``dist_pd`` cell's step at its
+   own dims, timed.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -151,8 +174,9 @@ main-path grid, a 17×17 card-vs-CPU grid, attention at S <= 128, a
 dense-path grid, phase 7's tiles at 12..16 squared with 16×16 and 17×17
 (the sparse route) in place of its two large shapes, and a 24×24 session
 grid with patches of 40, 5 and 5, phase 8 on 20×20 grids with 64-edge
-ingest chunks and small arch cells), with each kernel wrapper running its
-plain version, to
+ingest chunks and small arch cells, phase 9 on a one-rank gloo group
+with 20×20 and 12×12 grids and a small ``dist_pd`` cell), with each
+kernel wrapper running its plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
 
@@ -182,6 +206,7 @@ os.environ["CUDA_VISIBLE_DEVICES"] = CARD
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as tdist  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -190,6 +215,7 @@ from repro_torch import api  # noqa: E402
 from repro_torch import roofline  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import baselines, contraction, graph, solver  # noqa: E402,E501
+from repro_torch.core import dist as dist_mod  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.contract_matmul import ops as cm_ops  # noqa: E402
 from repro_torch.kernels.contract_matmul.ref import (  # noqa: E402
@@ -198,7 +224,7 @@ from repro_torch.kernels.contract_matmul.ref import (  # noqa: E402
 from repro_torch.kernels.cycle_intersect import ops as isect_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.chunked import chunked_attention  # noqa: E402,E501
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import ranks, serve  # noqa: E402
 from repro_torch import serve as solve_server  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import summarize  # noqa: E402
@@ -2234,6 +2260,319 @@ def phase_trace(main: dict, dense: dict, gen, rehearse: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the edge-range-sharded solve and the block decomposition
+# ---------------------------------------------------------------------------
+
+P9 = {"card": dict(main=(512, 1024), pair=(128, 128),
+                   dist_dims=None),
+      "rehearse": dict(main=(20, 20), pair=(12, 12),
+                       dist_dims=dict(blk_nodes=64, blk_edges=320,
+                                      boundary_edges=256))}
+BLOCKS = dict(n=400, p=0.05, seed=3, pad_edges=8192, pad_nodes=512,
+              n_blocks=8, blk_nodes=64, blk_edges=1024, max_neg=64,
+              quotient_pad=4096)
+SHARDED_REL_TOL = 1e-5          # sharded vs replicated objective / bound
+INTS9 = ("labels", "rounds", "n_contracted", "n_clusters")
+
+# one rank of (b): the 128x128 grid at S = 2 over gloo on the parent's
+# card; loads the kernels phase 1 built, builds none
+P9_RANK = """
+import dataclasses, time
+import numpy as np, torch
+from repro_torch.launch.ranks import init_process_group
+rank, world = init_process_group("gloo")
+from repro_torch import api
+from repro_torch.core import graph
+from repro_torch.kernels.cycle_intersect import ops as isect_ops
+from repro_torch.kernels.triangle_mp import ops as sweep_ops
+DEV, (H, W), OUT = torch.device(%(dev)r), %(grid)r, %(out)r
+def sync():
+    if DEV.type == "cuda":
+        torch.cuda.synchronize()
+inst = graph.grid_instance(H, W, seed=0, pad_edges=%(pad)d, device=DEV)
+cfg = dataclasses.replace(api.get_preset("pd-state-sharded").config,
+                          state_shards=2)
+sweep_ops.launches = isect_ops.launches = 0
+api.solve(inst, config=cfg, device=DEV)             # warm-up, counted
+launches = [sweep_ops.launches, isect_ops.launches]
+sync()
+t0 = time.perf_counter()
+res = api.solve(inst, config=cfg, device=DEV)
+sync()
+wall = time.perf_counter() - t0
+res_t, tr = api.solve(inst, config=cfg, trace=True, device=DEV)
+out = {k: x.cpu().numpy() for k, x in res._asdict().items()}
+out.update({"traced/" + k: x.cpu().numpy()
+            for k, x in res_t._asdict().items()})
+out.update({"trace/" + k: x.cpu().numpy() for k, x in tr._asdict().items()})
+np.savez(f"{OUT}.rank{rank}.npz", launches=np.array(launches),
+         wall=np.array(wall), **out)
+"""
+
+
+def sharded_shape_cases(shapes: dict, main: dict, E: int, gen) -> dict:
+    """Hold each kernel against its plain version at the shapes the
+    sharded path gave it that phase 3's cases did not cover."""
+    out = {"triangle_mp": [], "cycle_intersect": []}
+    for T in sorted(set(shapes["triangle_mp"])
+                    - set(main["main_shapes"]["triangle_mp"])):
+        out["triangle_mp"].append(phase_case(T, E, T // 8, gen,
+                                             "sharded path"))
+    for (R, W, Wj) in sorted(set(shapes["cycle_intersect"])
+                             - set(main["main_shapes"]["cycle_intersect"])):
+        out["cycle_intersect"].append(intersect_case(R, W, Wj, gen))
+    return out
+
+
+def phase9_one_rank(h: int, w: int, main: dict, gen) -> dict:
+    """(a) The main path's grid through ``preset="pd-state-sharded"`` on
+    the one-rank group, against the replicated sparse solve of the same
+    config."""
+    E = grid_edges(h, w)
+    inst = graph.grid_instance(h, w, seed=0, pad_edges=graph.round_up_edges(E),
+                               device=DEV)
+    preset = api.get_preset("pd-state-sharded")
+    rep_cfg = dataclasses.replace(preset.config, state_shards=0)
+    S = dist_mod.resolve_state_shards(preset.config.state_shards)
+    check(S == 1, f"pd-state-sharded resolved to {S} shards on one rank")
+
+    def peak_of(fn):
+        if DEV.type == "cuda":
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        fn()
+        sync()
+        return torch.cuda.max_memory_allocated() if DEV.type == "cuda" \
+            else 0
+
+    reset_counters()
+    res, first_s = timed_solve(inst, preset="pd-state-sharded")
+    launches = all_launches()
+    shapes = {"triangle_mp": dict(sweep_ops.shapes),
+              "cycle_intersect": dict(isect_ops.shapes)}
+    r = host(res)
+    rounds = int(r["rounds"])
+    check(DEV.type != "cuda" or launches["cycle_intersect"] > 0,
+          f"the sharded solve did not launch cycle_intersect: {launches}")
+    check(DEV.type != "cuda" or (
+        launches["triangle_mp"] == phase_launches(shapes["triangle_mp"])
+        and sum(shapes["triangle_mp"].values()) == rounds),
+          f"sharded solve: {launches['triangle_mp']} triangle_mp launches "
+          f"for MP phases {shapes['triangle_mp']} in {rounds} rounds")
+    check(launches["flash_attention"] == 0
+          and launches["contract_matmul"] == 0,
+          "the sharded solve launched the attention or contraction kernel")
+    rep, rep_first = timed_solve(inst, config=rep_cfg)
+    rr = host(rep)
+    diff = [k for k in INTS9 if not np.array_equal(r[k], rr[k])]
+    check(not diff, f"sharded != replicated in {diff}")
+    for k in ("objective", "lower_bound"):
+        check(rel_close(r[k], rr[k], SHARDED_REL_TOL),
+              f"sharded {k} {r[k]} vs replicated {rr[k]}")
+    obj64 = check_solution(inst, r, "sharded main path")
+    check(rel_close(r["objective"], obj64, SHARDED_REL_TOL),
+          f"sharded objective {r['objective']} vs float64 recount {obj64}")
+    res_t, tr = api.solve(inst, preset="pd-state-sharded", trace=True,
+                          device=DEV)
+    diff = same_result(host(res_t), r)
+    check(not diff, f"traced sharded solve != untraced in {diff}")
+    check(tuple(tr.shard_edges.shape) == (preset.config.max_rounds, 1),
+          f"shard rows {tuple(tr.shard_edges.shape)}, want width 1")
+    walls = [timed_solve(inst, preset="pd-state-sharded")[1]
+             for _ in range(3)]
+    rep_walls = [timed_solve(inst, config=rep_cfg)[1] for _ in range(3)]
+    sites = count_syncs(lambda: api.solve(inst, preset="pd-state-sharded",
+                                          device=DEV))
+    rep_sites = count_syncs(lambda: api.solve(inst, config=rep_cfg,
+                                              device=DEV))
+    peak = peak_of(lambda: api.solve(inst, preset="pd-state-sharded",
+                                     device=DEV))
+    rep_peak = peak_of(lambda: api.solve(inst, config=rep_cfg, device=DEV))
+    prof = profile_solve(inst, preset="pd-state-sharded")
+    med, rep_med = statistics.median(walls), statistics.median(rep_walls)
+    out = dict(
+        instance=dict(h=h, w=w, nodes=inst.num_nodes, edges=E,
+                      pad_edges=inst.num_edges),
+        shards=S, rounds=rounds, objective=float(r["objective"]),
+        objective_host_f64=obj64, lower_bound=float(r["lower_bound"]),
+        replicated_objective=float(rr["objective"]),
+        replicated_lower_bound=float(rr["lower_bound"]),
+        n_contracted=r["n_contracted"].tolist(), launches=launches,
+        shapes={k: {str(s): n for s, n in v.items()}
+                for k, v in shapes.items()},
+        first_call_s=first_s, replicated_first_call_s=rep_first,
+        wall_s=walls, wall_s_median=med, replicated_wall_s=rep_walls,
+        replicated_wall_s_median=rep_med, wall_ratio=med / rep_med,
+        host_syncs=sum(sites.values()),
+        host_sync_sites=dict(sites.most_common()),
+        replicated_host_syncs=sum(rep_sites.values()),
+        replicated_host_sync_sites=dict(rep_sites.most_common()),
+        peak_bytes=peak, replicated_peak_bytes=rep_peak, profile=prof,
+        trace=summarize(tr))
+    log(f"  sharded main path (S = {S}, one-rank group): {rounds} rounds, "
+        f"objective {out['objective']} (replicated {out['replicated_objective']}"
+        f", host f64 {obj64}), bound {out['lower_bound']} (replicated "
+        f"{out['replicated_lower_bound']}); labels and histories equal; "
+        f"launches {launches}, MP phases {shapes['triangle_mp']}")
+    log(f"  wall {med:.3f} s sharded vs {rep_med:.3f} s replicated (medians "
+        f"of 3, ratio {med / rep_med:.3f}); host syncs "
+        f"{out['host_syncs']} {out['host_sync_sites']} vs "
+        f"{out['replicated_host_syncs']} {out['replicated_host_sync_sites']}"
+        f"; peak {peak / 2**20:.1f} vs {rep_peak / 2**20:.1f} MiB "
+        f"[{CARD_NAME}]")
+    if prof:
+        busy = prof["device_busy_ms"] / 1e3
+        log(f"  profiled sharded solve: device busy {busy:.3f} s of "
+            f"{prof['wall_ms'] / 1e3:.3f} s wall; phases {prof['phases']}; "
+            f"kernels {prof['kernels']}; top "
+            f"{prof['top_device_kernels'][:6]} [{CARD_NAME}]")
+    out["cases"] = sharded_shape_cases(shapes, main, inst.num_edges, gen)
+    return out
+
+
+def phase9_two_ranks(h: int, w: int) -> dict:
+    """(b) Two processes on the one card over gloo, S = 2, against S = 1
+    in this process."""
+    pad = graph.round_up_edges(grid_edges(h, w))
+    inst = graph.grid_instance(h, w, seed=0, pad_edges=pad, device=DEV)
+    cfg = dataclasses.replace(api.get_preset("pd-state-sharded").config,
+                              state_shards=1)
+    one = host(api.solve(inst, config=cfg, device=DEV))
+    base = ROOT / "chiprun_out" / "phase9_two_ranks"
+    base.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    ranks.spawn(P9_RANK % dict(dev=str(DEV), grid=(h, w), out=str(base),
+                               pad=pad),
+                world=2, store=f"{base}.store", env=env, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    out = dict(instance=dict(h=h, w=w, pad_edges=pad), spawn_s=spawn_s,
+               ranks=[])
+    for rank in range(2):
+        got = dict(np.load(f"{base}.rank{rank}.npz"))
+        for prefix in ("", "traced/"):
+            diff = [k for k in one if not np.array_equal(got[prefix + k],
+                                                         one[k])]
+            check(not diff, f"rank {rank}: S = 2 {prefix or 'untraced '}"
+                  f"!= S = 1 in {diff}")
+        n_mp, n_isect = (int(x) for x in got["launches"])
+        check(DEV.type != "cuda" or (n_mp > 0 and n_isect > 0),
+              f"rank {rank} launched triangle_mp {n_mp}, cycle_intersect "
+              f"{n_isect} times")
+        R = int(got["trace/rounds"])
+        rows = {k: got["trace/" + k][:R].tolist()
+                for k in ("shard_edges", "shard_topk", "shard_halo")}
+        out["ranks"].append(dict(wall_s=float(got["wall"]),
+                                 launches=dict(triangle_mp=n_mp,
+                                               cycle_intersect=n_isect),
+                                 rounds=R, **rows))
+        log(f"  two ranks over gloo, rank {rank}: bit-identical to S = 1 "
+            f"({R} rounds), wall {float(got['wall']):.3f} s, launches "
+            f"triangle_mp {n_mp}, cycle_intersect {n_isect}; per-shard "
+            f"rows edges {rows['shard_edges']}, top-k {rows['shard_topk']},"
+            f" halo {rows['shard_halo']} [{CARD_NAME}]")
+    return out
+
+
+def phase9_blocks(group, rehearse: bool, gen) -> dict:
+    """(c) The block decomposition on the one-rank group: the distributed
+    round over 8 blocks, the quotient solved, the bound below the
+    replicated objective; then the dist_pd cell's step at its dims."""
+    b = BLOCKS
+    inst = graph.random_instance(b["n"], b["p"], seed=b["seed"],
+                                 pad_edges=b["pad_edges"],
+                                 pad_nodes=b["pad_nodes"], device=DEV)
+    parts = dist_mod.partition_instance(inst, b["n_blocks"],
+                                        b["blk_nodes"], b["blk_edges"])
+    keys = ("u", "v", "cost", "edge_valid", "node_valid", "boundary_cost")
+    args = [torch.from_numpy(parts[k]).to(DEV) for k in keys]
+    rnd = dist_mod.make_dist_pd_round(group, mp_iters=3,
+                                      max_neg=b["max_neg"])
+    reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    blocks = rnd(*args)
+    sync()
+    round_s = time.perf_counter() - t0
+    launches = all_launches()
+    lb = float(blocks[6])
+    q, gl = dist_mod.merge_blocks_quotient(
+        blocks[5].cpu().numpy(), parts["boundary_u"], parts["boundary_v"],
+        parts["boundary_cost"], b["blk_nodes"], b["quotient_pad"],
+        device=DEV)
+    qres = host(api.solve(q, device=DEV))
+    labels = qres["labels"][gl[:inst.num_nodes]]
+    lifted = baselines.objective(inst, labels)
+    rep = host(api.solve(inst, config=api.SolverConfig(max_neg=512),
+                         device=DEV))
+    check(np.isfinite(lb) and lb <= float(rep["objective"]) + 1e-3
+          and lb <= lifted + 1e-3,
+          f"block bound {lb} above the replicated objective "
+          f"{float(rep['objective'])} or the quotient's {lifted}")
+    arch = get_arch("rama-multicut")
+    cell = arch.shapes["dist_pd"]
+    if rehearse:
+        cell = dataclasses.replace(cell, dims=P9["rehearse"]["dist_dims"])
+    d = cell.dims
+    side = int(round(d["blk_nodes"] ** 0.5))
+    blk = graph.grid_instance(side, side, seed=0, pad_edges=d["blk_edges"],
+                              device=DEV)
+    cell_args = [t[None] for t in blk] + [torch.randn(
+        d["boundary_edges"], generator=gen, device=DEV)]
+    want = arch.abstract_inputs(cell)
+    check([tuple(t.shape) for t in cell_args]
+          == [tuple(want[k].shape) for k in keys],
+          "dist_pd inputs do not have the cell's shapes")
+    step = arch.step_fn(cell)
+    cell_out = step(*cell_args)
+    check(all(torch.isfinite(t).all() for t in cell_out
+              if t.is_floating_point()), "dist_pd: non-finite outputs")
+    ms = cuda_ms(lambda: step(*cell_args), 5, 1)
+    flops = arch.model_flops(cell)
+    out = dict(blocks=b["n_blocks"], round_s=round_s, launches=launches,
+               lower_bound=lb, quotient_nodes=int(q.node_valid.sum()),
+               quotient_objective=lifted,
+               replicated_objective=float(rep["objective"]),
+               cell=dict(dims=d, ms=ms, model_flops=flops,
+                         model_tflop_per_s=flops / ms / 1e9))
+    log(f"  block decomposition: {b['n_blocks']} blocks in {round_s:.3f} s "
+        f"(launches {launches}), bound {lb} <= replicated objective "
+        f"{out['replicated_objective']} and the quotient's "
+        f"{lifted} ({out['quotient_nodes']} quotient nodes); dist_pd cell "
+        f"{d}: {ms:.4f} ms (median of 5) [{CARD_NAME}]")
+    return out
+
+
+def phase_sharded(main: dict, gen, rehearse: bool) -> dict:
+    """Phase 9: (a) and (c) on a one-rank process group (NCCL on the card,
+    gloo in a rehearsal), (b) in two child processes; the group is
+    destroyed before the phase returns."""
+    t0 = time.perf_counter()
+    key = "rehearse" if rehearse else "card"
+    store = ROOT / "chiprun_out" / "phase9.store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    kw = {}
+    if DEV.type == "cuda":
+        torch.cuda.set_device(0)
+        kw["device_id"] = torch.device("cuda", 0)
+    tdist.init_process_group("nccl" if DEV.type == "cuda" else "gloo",
+                             store=tdist.FileStore(str(store), 1), rank=0,
+                             world_size=1, **kw)
+    try:
+        out = dict(one_rank=phase9_one_rank(*P9[key]["main"], main, gen))
+        out["two_ranks"] = phase9_two_ranks(*P9[key]["pair"])
+        out["blocks"] = phase9_blocks(tdist.group.WORLD, rehearse, gen)
+    finally:
+        tdist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 9 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -2248,7 +2587,8 @@ def main_path_cases(main: dict, gen) -> dict:
 
 
 def kernel_line(cases: dict, main_cases: dict, main: dict,
-                lm: dict, dense: dict, served: dict, traced: dict) -> dict:
+                lm: dict, dense: dict, served: dict, traced: dict,
+                sharded: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
         if name == "contract_matmul":
@@ -2302,7 +2642,8 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
         key = [top, 3] if name == "triangle_mp" else \
             [[top[0], top[1]], [top[0], top[2]]]
         head = next(c for c in main_cases[name] if c["shape"] == key)
-        every = cases[name] + main_cases[name]
+        sharded_cases = sharded["one_rank"]["cases"][name]
+        every = cases[name] + main_cases[name] + sharded_cases
         prof = main.get("profile", {})
         if name == "triangle_mp":
             extra = dict(
@@ -2339,6 +2680,9 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
                 name],
             mp_sweep_1m_launches=traced["roofline"]["cells"][
                 "mp_sweep_1m"]["launches"][name],
+            sharded_launches=sharded["one_rank"]["launches"][name],
+            two_rank_launches=[r["launches"][name]
+                               for r in sharded["two_ranks"]["ranks"]],
             work=head["work"],
             device_us_per_launch=prof.get("kernels", {}).get(
                 name, {}).get("device_us_per_launch"),
@@ -2407,9 +2751,12 @@ def main(argv=None) -> int:
         log("phase 8: solve traces, Table 1, streamed ingest, roofline")
         record["trace"] = phase_trace(main_rec, record["dense"], gen,
                                       args.rehearse)
+        log("phase 9: the edge-range-sharded solve and the block "
+            "decomposition")
+        record["sharded"] = phase_sharded(main_rec, gen, args.rehearse)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
                            record["dense"], record["serve"],
-                           record["trace"])
+                           record["trace"], record["sharded"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -33,9 +33,9 @@ the plain one.
 
 **The registry.** Every entry point dispatches through a bounded LRU
 registry keyed, as the reference's, per (mode, config, backend, batched,
-batch_shards, kind, traced). An entry is one resolved callable: config,
-backend and kernels resolved, the kernels built at its first call on the
-card. There is no ``torch.compile`` and no CUDA graph yet (the solve syncs
+batch_shards, kind, traced), and by the resolved state-shard count. An
+entry is one resolved callable: config, backend and kernels resolved,
+the kernels built at its first call on the card. There is no ``torch.compile`` and no CUDA graph yet (the solve syncs
 with the host every round), so a "trace" here is the first call of an
 entry at a new input-shape signature: :func:`trace_count` counts those,
 which keeps the serving engine's compile budget (≤ buckets × routes ×
@@ -52,9 +52,15 @@ exact and warm; traces: ``solve(trace=True)``,
 ``compiled_solve(trace=True)`` and ``Multicut.solve(trace=True)`` return
 ``(SolveResult, SolveTrace)`` (:mod:`repro_torch.obs.trace`) through their
 own registry entry, bit-identical to the untraced solve; delta kinds take
-no trace. ``state_shards``, ``separation_shards > 1`` and a clamped
-``batch_shards > 1`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+no trace. The edge-range-sharded solve (``state_shards``, the
+``pd-state-sharded`` preset; :mod:`repro_torch.core.sharded`): every rank
+of the default ``torch.distributed`` group calls :func:`solve` with the
+same instance (or its own ``EdgeRange`` from
+``make_instance_streamed(state_shards=...)``) and gets the same result;
+without a process group the shard count clamps to 1. Not ported, ROADMAP
+Queue 1 item 13's remainder: ``separation_shards > 1`` (the
+``pd-sharded`` preset) and a clamped ``batch_shards > 1`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ from functools import lru_cache
 
 import torch
 
-from repro_torch.core.dist import resolve_batch_shards
+from repro_torch.core.dist import resolve_batch_shards, \
+    resolve_state_shards
 from repro_torch.core.graph import (
     GRAPH_IMPLS, ROW_CAP_FLOOR, MulticutInstance, attractive_degree_p95,
     make_instance, resolve_device, resolve_graph_impl,
@@ -154,6 +161,14 @@ for _p in (
                                separation_chunk=64),
            "CSR PD with chunked separation: peak separation memory bounded "
            "by separation_chunk, not max_neg (bit-identical results)"),
+    Preset("pd-state-sharded", "pd",
+           dataclasses.replace(_PAPER, graph_impl="sparse",
+                               first_round_cycles45=False, state_shards=4),
+           "fully sharded solve: the whole solver state (CSR included) "
+           "edge-range-partitioned over up to 4 ranks of the default "
+           "process group for the life of the solve "
+           "(repro_torch.core.sharded; 3-cycle separation; clamped to the "
+           "ranks present; bit-identical across shard counts)"),
 ):
     register_preset(_p)
 
@@ -236,9 +251,10 @@ def _make_registry(maxsize: int):
     @lru_cache(maxsize=maxsize)
     def _compiled(mode: str, cfg: SolverConfig, backend: str, batched: bool,
                   batch_shards: int = 1, kind: str = "solve",
-                  traced: bool = False):
+                  traced: bool = False, state_shards: int = 0):
         """One resolved callable per (mode, config, backend, batched,
-        batch_shards, kind, traced). ``kind`` selects the program:
+        batch_shards, kind, traced, resolved state shards: 0 for a
+        replicated config). ``kind`` selects the program:
         "solve" takes an instance; "delta-open" takes an instance and
         returns (result, DeltaState); "delta"/"delta-warm" take
         (DeltaState, DeltaPatch) and return (result, DeltaState,
@@ -248,7 +264,7 @@ def _make_registry(maxsize: int):
             raise ValueError(f"trace=True applies to kind='solve' "
                              f"callables only (got kind={kind!r})")
         if batch_shards > 1:
-            resolve_batch_shards(batch_shards)      # raises: item 13
+            resolve_batch_shards(batch_shards)  # raises: item 13's rest
         if batched and cfg.state_shards:
             raise ValueError(
                 "state_shards and batched solves are mutually exclusive "
@@ -300,11 +316,9 @@ def compiled_solve(mode: str | None = None,
     mode, config, backend = _normalize(mode, config, backend, preset)
     if batch_shards > 1 and not batched:
         raise ValueError("batch_shards applies to batched executables only")
-    if trace:
-        return _compiled(mode, config, backend, batched,
-                         resolve_batch_shards(batch_shards), "solve", True)
     return _compiled(mode, config, backend, batched,
-                     resolve_batch_shards(batch_shards))
+                     resolve_batch_shards(batch_shards), "solve", trace,
+                     _state_key(config))
 
 
 def compiled_delta(mode: str | None = None,
@@ -385,6 +399,14 @@ def _normalize(mode, config, backend, preset, graph_impl=None):
     return mode, config, backend
 
 
+def _state_key(config: SolverConfig) -> int:
+    """The registry key's shard count: the resolved ``state_shards`` (it
+    depends on the process group at call time), 0 for a replicated
+    config."""
+    return resolve_state_shards(config.state_shards) \
+        if config.state_shards else 0
+
+
 def solve(inst: MulticutInstance, mode: str | None = None,
           config: SolverConfig | None = None, backend: str | None = None,
           preset: str | Preset | None = None,
@@ -409,10 +431,8 @@ def solve(inst: MulticutInstance, mode: str | None = None,
         cap = attractive_degree_p95(inst, ROW_CAP_FLOOR,
                                     config.sparse_row_cap)
         config = dataclasses.replace(config, sparse_row_cap_short=cap)
-    if trace:
-        return _compiled(mode, config, backend, False, 1, "solve",
-                         True)(inst)
-    return _compiled(mode, config, backend, False, 1)(inst)
+    return _compiled(mode, config, backend, False, 1, "solve", trace,
+                     _state_key(config))(inst)
 
 
 def _on(tree, device):
@@ -436,7 +456,8 @@ def solve_batch(batch: MulticutInstance, mode: str | None = None,
                                        graph_impl)
     shards = resolve_batch_shards(batch_shards)
     batch = _on(batch, device)
-    return _compiled(mode, config, backend, True, shards)(batch)
+    return _compiled(mode, config, backend, True, shards, "solve", False,
+                     _state_key(config))(batch)
 
 
 def solve_with_state(inst: MulticutInstance, mode: str | None = None,

@@ -6,9 +6,12 @@ Cells:
       one card (the per-block workload of the distributed solver);
   mp_sweep_1m — the message-passing phase at 1M triangles (the
       triangle_mp kernel's production shape);
-  dist_pd — the domain-decomposed round across a mesh: it raises, since
-      meshes and the sharded solve are ROADMAP Queue 1 item 13 (as are
-      the reference's ``input_shardings``/``state_shardings``).
+  dist_pd — the domain-decomposed round over the default
+      ``torch.distributed`` group (one block per rank; one rank holds
+      every block without a group), ``core/dist.py``'s
+      ``make_dist_pd_round``. The reference's ``input_shardings``/
+      ``state_shardings`` have no counterpart: each rank computes its own
+      blocks of the replicated inputs.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ShapeCell, register
 from repro_torch.core.graph import MulticutInstance
@@ -35,10 +39,9 @@ RAMA_SHAPES = {
 }
 
 
-def _no_dist(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"rama-multicut {what}: the dist_pd cell runs on a device mesh, "
-        f"which is not ported yet (ROADMAP Queue 1 item 13)")
+def _default_group():
+    """The default process group, or None (one rank) without one."""
+    return dist.group.WORLD if dist.is_initialized() else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,16 +74,25 @@ class RamaArch:
             return {"cost": meta((E,), f32), "edge_valid": meta((E,), b),
                     "tri": meta((T, 3), i32), "tri_valid": meta((T,), b)}
         if shape.kind == "dist":
-            raise _no_dist("abstract_inputs")
+            # the reference's dist_inputs: one block per rank
+            nb = dist.get_world_size() if dist.is_initialized() else 1
+            Eb, Nb = d["blk_edges"], d["blk_nodes"]
+            return {"u": meta((nb, Eb), i32), "v": meta((nb, Eb), i32),
+                    "cost": meta((nb, Eb), f32),
+                    "edge_valid": meta((nb, Eb), b),
+                    "node_valid": meta((nb, Nb), b),
+                    "boundary_cost": meta((d["boundary_edges"],), f32)}
         raise ValueError(shape.kind)
 
     def step_fn(self, shape: ShapeCell) -> Callable:
         """The cell's step as a plain tensor function: ``pd_round(u, v,
         cost, edge_valid, node_valid)`` -> (u', v', cost', edge_valid',
         node_valid', mapping, lb) through ``_dual_round``/``_primal_round``,
-        or ``mp_step(cost, edge_valid, tri, tri_valid)`` -> (c_rep, lb)
-        through the fused MP phase; both run the hand kernels on CUDA
-        tensors (their plain versions on CPU tensors)."""
+        ``mp_step(cost, edge_valid, tri, tri_valid)`` -> (c_rep, lb)
+        through the fused MP phase, or the dist_pd round ``dist_round(u,
+        v, cost, edge_valid, node_valid, boundary_cost)`` over the default
+        process group (``core.dist.make_dist_pd_round``); all run the hand
+        kernels on CUDA tensors (their plain versions on CPU tensors)."""
         mp = resolve_mp("cuda")
         if shape.kind == "solver":
             mpi, mn, mt = self.mp_iters, self.max_neg, self.max_tri_per_edge
@@ -105,7 +117,10 @@ class RamaArch:
                 return c_rep, lb
             return mp_step
         if shape.kind == "dist":
-            raise _no_dist("step_fn")
+            from repro_torch.core.dist import make_dist_pd_round
+            return make_dist_pd_round(_default_group(), mp_iters=3,
+                                      max_neg=128,
+                                      max_tri_per_edge=self.max_tri_per_edge)
         raise ValueError(shape.kind)
 
     def model_flops(self, shape: ShapeCell) -> float:

@@ -13,6 +13,11 @@ Port of the replicated half of ``repro.core.contraction``:
 Integer min/max scatters are order-free, so they use ``scatter_reduce_``.
 The one float reduction (merged edge costs) runs in a fixed order, the
 same on every device.
+
+The sharded half (``*_sharded``, :func:`contract_sharded`) runs the same
+arithmetic on one rank's contiguous edge range of the state group
+(:mod:`repro_torch.core.dist`), bit for bit equal to the replicated half
+for every shard count.
 """
 from __future__ import annotations
 
@@ -20,8 +25,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.dist import all_gather, all_max, all_min, \
+    all_sum_int, blocked_sum, combine_node_best, edge_range_start
 from repro_torch.core.graph import CsrGraph, MulticutInstance, \
-    csr_lookup_edge, lexsort
+    build_csr, csr_lookup_edge, lexsort
 from repro_torch.kernels.contract_matmul.ref import contract_matmul_ref
 from repro_torch.sparse.segment_ops import segment_argmax, sequential_sums
 
@@ -309,6 +316,265 @@ def contract_csr(inst: MulticutInstance, S: torch.Tensor):
     :class:`CsrGraph`, maintained from the contraction's own sort (equal
     to a fresh ``build_csr``). The solver carries it to the next round."""
     return _contract_core(inst, S)
+
+
+# ---------------------------------------------------------------------------
+# Edge-range-sharded contraction (SolverConfig.state_shards)
+#
+# Each function runs on one rank of the state group: per-edge arrays are
+# the rank's local (E/S,) contiguous range, per-node arrays are the same on
+# every rank. Every output equals the replicated half's bit for bit for
+# every shard count: min/max scatters combine across ranks with all_min/
+# all_max of int32 tables (exact), argmax ties travel as integer keys of
+# the replicated concat index (dist.combine_node_best), integer counts go
+# through all_sum_int, and floats are summed either by dist.blocked_sum
+# (scalars) or per destination in the replicated path's entry order
+# (merged costs). Python branches read only values that a collective has
+# made the same on every rank, so the ranks stay in lockstep.
+# ---------------------------------------------------------------------------
+
+def connected_components_sharded(u_loc, v_loc, edge_mask_loc, num_nodes: int,
+                                 group):
+    """Sharded :func:`connected_components`: each rank min-scatters its own
+    edges, an all_min fuses the partial scatters (equal to the scatter over
+    all edges), then the pointer jumping runs on the replicated labels.
+    The label trajectory is the replicated loop's, so every rank takes
+    the same convergence branch."""
+    labels = torch.arange(num_nodes, dtype=torch.int32, device=u_loc.device)
+    ul, vl = u_loc.long(), v_loc.long()
+    while True:
+        prev = labels
+        for _ in range(CC_CHECK_EVERY):
+            lu, lv = labels[ul], labels[vl]
+            m = torch.minimum(lu, lv)
+            new = labels.scatter_reduce(0, ul,
+                                        torch.where(edge_mask_loc, m, lu),
+                                        "amin", include_self=True)
+            new = new.scatter_reduce(0, vl, torch.where(edge_mask_loc, m, lv),
+                                     "amin", include_self=True)
+            new = all_min(new, group)
+            new = new[new.long()]           # pointer jumping (twice)
+            labels = new[new.long()]
+        if not bool((labels != prev).any()):
+            return labels
+
+
+def _node_best_edge_sharded(seg0, seg1, cost_loc, active_loc,
+                            num_segments: int, shards: int, group):
+    """Sharded :func:`_node_best_positive_edge` (segments: node ids for the
+    matching, component labels for the forest). Returns the (N,) GLOBAL
+    edge id each segment picks, or -1. The replicated argmax ties toward
+    the smallest index of the 2E concat [u-copies, v-copies]; each rank's
+    local winner is its smallest local index, whose global tie key is
+    ``direction * E + global id``, so the fold by (max value, min key)
+    picks the replicated winner."""
+    E_loc = cost_loc.shape[0]
+    E = E_loc * shards
+    e0 = edge_range_start(E_loc, group)
+    seg = torch.cat([seg0, seg1])
+    val = torch.cat([cost_loc, cost_loc])
+    msk = torch.cat([active_loc, active_loc])
+    arg, vmax = segment_argmax(val, seg, num_segments, mask=msk)
+    dir_ = (arg >= E_loc).to(torch.int32)
+    lid = arg - dir_ * E_loc
+    has = arg >= 0
+    key = torch.where(has, dir_ * E + e0 + lid,
+                      torch.full_like(arg, torch.iinfo(torch.int32).max))
+    pay = torch.where(has, e0 + lid, torch.full_like(arg, -1))
+    return combine_node_best(vmax, key, pay, group)[2]
+
+
+def maximum_matching_sharded(u_loc, v_loc, cost_loc, ev_loc, node_valid,
+                             rounds: int, min_cost, shards: int, group):
+    """Sharded :func:`maximum_matching`; returns the rank's (E/S,) slice of
+    the replicated matching."""
+    N = node_valid.shape[0]
+    E_loc = u_loc.shape[0]
+    dev = u_loc.device
+    geid = edge_range_start(E_loc, group) + torch.arange(
+        E_loc, dtype=torch.int32, device=dev)
+    ul, vl = u_loc.long(), v_loc.long()
+    S = torch.zeros(E_loc, dtype=torch.bool, device=dev)
+    free = node_valid
+    for _ in range(rounds):
+        active = ev_loc & (cost_loc > min_cost) & free[ul] & free[vl]
+        best = _node_best_edge_sharded(u_loc, v_loc, cost_loc, active, N,
+                                       shards, group)
+        sel = active & (best[ul] == geid) & (best[vl] == geid)
+        S = S | sel
+        s32 = sel.to(torch.int32)
+        m = _scatter_extreme(N, 0, ul, s32, "amax")
+        m = m.scatter_reduce(0, vl, s32, "amax")
+        free = free & ~(all_max(m, group) > 0)
+    return S
+
+
+def spanning_forest_sharded(u_loc, v_loc, cost_loc, ev_loc, node_valid,
+                            rounds: int, min_cost, shards: int, group):
+    """Sharded :func:`spanning_forest_contraction`; returns the rank's
+    slice of the replicated forest (labels, freezing masks and best-edge
+    picks are replicated-exact every round)."""
+    N = node_valid.shape[0]
+    E_loc = u_loc.shape[0]
+    dev = u_loc.device
+    e0 = edge_range_start(E_loc, group)
+    ul, vl = u_loc.long(), v_loc.long()
+    neg = ev_loc & (cost_loc < 0)
+    S = torch.zeros(E_loc, dtype=torch.bool, device=dev)
+    labels = torch.arange(N, dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        cl_u, cl_v = labels[ul], labels[vl]
+        active = ev_loc & (cost_loc > min_cost) & (cl_u != cl_v)
+        best_edge = _node_best_edge_sharded(cl_u, cl_v, cost_loc, active, N,
+                                            shards, group)
+        own = (best_edge >= e0) & (best_edge < e0 + E_loc)
+        idx = torch.where(own, best_edge - e0, torch.full_like(best_edge,
+                                                               E_loc))
+        cand = _scatter_extreme(E_loc + 1, 0, idx, own.to(torch.int32),
+                                "amax")[:E_loc] > 0
+        cand = cand & active
+        S_try = S | cand
+        labels_try = connected_components_sharded(u_loc, v_loc, S_try, N,
+                                                  group)
+        lt_u, lt_v = labels_try[ul], labels_try[vl]
+        conflict = neg & (lt_u == lt_v) & (labels[ul] != labels[vl])
+        fr = _scatter_extreme(N, 0, lt_u, conflict.to(torch.int32), "amax")
+        frozen = all_max(fr, group) > 0
+        keep = cand & ~frozen[lt_u.long()] & ~frozen[lt_v.long()]
+        S = S | keep
+        labels = connected_components_sharded(u_loc, v_loc, S, N, group)
+    return S
+
+
+def choose_contraction_set_sharded(u_loc, v_loc, cost_loc, ev_loc,
+                                   node_valid, matching_rounds: int,
+                                   forest_rounds: int, switch_frac: float,
+                                   contract_frac: float, shards: int, group):
+    """Sharded :func:`choose_contraction_set`. Edge counts cross ranks as
+    exact integer sums and the cost ceiling as an all_max, so the
+    matching/forest switch (a device-side select) decides as the
+    replicated one does."""
+    min_cost = 0.0
+    if contract_frac > 0.0:
+        cmax = all_max(torch.where(ev_loc, cost_loc,
+                                   torch.zeros_like(cost_loc)).max(), group)
+        min_cost = contract_frac * cmax.clamp(min=0.0)
+    S_match = maximum_matching_sharded(u_loc, v_loc, cost_loc, ev_loc,
+                                       node_valid, matching_rounds, min_cost,
+                                       shards, group)
+    n_match = all_sum_int(S_match.sum(), group)
+    enough = n_match >= switch_frac * node_valid.sum()
+    S_forest = spanning_forest_sharded(u_loc, v_loc, cost_loc, ev_loc,
+                                       node_valid, forest_rounds, min_cost,
+                                       shards, group)
+    n_forest = all_sum_int(S_forest.sum(), group)
+    use_match = enough | (n_forest < n_match)
+    return torch.where(use_match, S_match, S_forest)
+
+
+def _lex2_count_less(key_sorted, lo, hi, num_nodes: int):
+    """Count of entries of the sorted pair keys strictly before each (lo,
+    hi): one ``searchsorted`` on the int64 key ``lo·(N+1)+hi``, which
+    orders pairs lexicographically (the reference's 2-key bisect)."""
+    key = lo.long() * (num_nodes + 1) + hi.long()
+    return torch.searchsorted(key_sorted, key, side="left")
+
+
+class ShardedContraction(NamedTuple):
+    """One rank's view of one contraction: per-edge leaves are its (E/S,)
+    slice of the contracted instance (global new-edge range ``[rank *
+    E/S, (rank+1) * E/S)``), per-node leaves replicated."""
+    u2: torch.Tensor          # (E/S,) local contracted COO
+    v2: torch.Tensor
+    c2: torch.Tensor
+    ev2: torch.Tensor
+    node_valid: torch.Tensor  # (N,) replicated
+    mapping: torch.Tensor     # (N,) old node -> new compact id
+    n_new: torch.Tensor
+    self_loop_gain: torch.Tensor
+    n_contracted: torch.Tensor
+    csr: CsrGraph             # the rank's CSR (LOCAL edge ids)
+
+
+def contract_sharded(u_loc, v_loc, cost_loc, ev_loc, node_valid, S_loc,
+                     shards: int, group) -> ShardedContraction:
+    """Sharded :func:`_contract_core`, in two exchanges.
+
+    Exchange 1 all_gathers every surviving edge's pair key ``lo·(N+1)+hi``
+    (E int64, transient); one sort of it gives the global unique pair list
+    on every rank, and a pair's rank in it is the replicated new edge id
+    (forward runs are in (lo, hi) order there). Exchange 2 all_gathers
+    each edge's (target id, cost) in global id order; each rank sums the
+    entries of the targets it owns one at a time in that order — within a
+    pair, ascending original edge id, as the replicated sort leaves them
+    (its ties on (src, dst) are broken by edge id across both
+    orientations) — so the merged costs equal the replicated path's bit
+    for bit for every shard count. The reference's exchange takes the
+    (fu < fv) entries before the (fu > fv) ones, which differs from its
+    own replicated sum on a pair merged from three or more edges of both
+    orientations; the port keeps the replicated order. One host sync (the
+    longest merged run)."""
+    N = node_valid.shape[0]
+    E_loc = u_loc.shape[0]
+    dev = u_loc.device
+    e0 = edge_range_start(E_loc, group)
+    labels = connected_components_sharded(u_loc, v_loc, S_loc & ev_loc, N,
+                                          group)
+    ar_n = torch.arange(N, dtype=torch.int32, device=dev)
+    is_root = (labels == ar_n) & node_valid
+    new_id = torch.cumsum(is_root.to(torch.int32), 0, dtype=torch.int32) - 1
+    f = new_id[labels.long()]
+    f = torch.where(node_valid, f, torch.zeros_like(f))
+    n_new = is_root.sum()
+
+    fu, fv = f[u_loc.long()], f[v_loc.long()]
+    self_loop = ev_loc & (fu == fv)
+    gain = blocked_sum(torch.where(self_loop, cost_loc,
+                                   torch.zeros_like(cost_loc)), shards, group)
+    valid2 = ev_loc & ~self_loop
+
+    # exchange 1: the global unique (lo, hi) list, sentinel keys last
+    sent = N * (N + 1) + N
+    lo, hi = torch.minimum(fu, fv), torch.maximum(fu, fv)
+    key = torch.where(valid2, lo.long() * (N + 1) + hi.long(),
+                      torch.full_like(lo, sent, dtype=torch.int64))
+    gs = torch.sort(all_gather(key, group).reshape(-1)).values     # (E,)
+    E = gs.shape[0]
+    head = torch.cat([gs[:1] < sent, (gs[1:] != gs[:-1]) & (gs[1:] < sent)])
+    rank = torch.cumsum(head.to(torch.int64), 0) - 1
+    n_unique = head.sum()
+    uniq = torch.full((E + 1,), sent, dtype=torch.int64, device=dev) \
+        .scatter_(0, torch.where(head, rank, E), gs)[:E]
+
+    # new edge id of each surviving edge: the rank of its pair
+    target = torch.where(valid2, _lex2_count_less(uniq, lo, hi, N),
+                         torch.full_like(key, -1))
+
+    # exchange 2: (target, cost) in global id order; each rank sums its
+    # targets' entries in that order
+    gt = all_gather(target, group).reshape(-1)
+    gc = all_gather(cost_loc, group).reshape(-1)
+    mine = (gt >= e0) & (gt < e0 + E_loc)
+    seg = torch.where(mine, gt - e0, torch.full_like(gt, E_loc))
+    perm = torch.sort(seg, stable=True).indices
+    lengths = torch.zeros(E_loc + 1, dtype=torch.int64, device=dev) \
+        .scatter_add_(0, seg, torch.ones_like(seg))[:E_loc]
+    starts = torch.cumsum(lengths, 0) - lengths
+    c2 = sequential_sums(gc[perm], starts, lengths, int(lengths.max()))
+
+    idx = e0 + torch.arange(E_loc, dtype=torch.int64, device=dev)
+    ev2 = idx < n_unique
+    k2 = uniq[idx]
+    zero = torch.zeros_like(k2)
+    u2 = torch.where(ev2, k2 // (N + 1), zero).to(torch.int32)
+    v2 = torch.where(ev2, k2 % (N + 1), zero).to(torch.int32)
+    c2 = torch.where(ev2, c2, torch.zeros_like(c2))
+    n_contracted = all_sum_int((S_loc & ev_loc).sum(), group)
+    return ShardedContraction(
+        u2=u2, v2=v2, c2=c2, ev2=ev2,
+        node_valid=torch.arange(N, device=dev) < n_new, mapping=f,
+        n_new=n_new, self_loop_gain=gain, n_contracted=n_contracted,
+        csr=build_csr(u2, v2, ev2, N))
 
 
 # ---------------------------------------------------------------------------

@@ -372,8 +372,9 @@ def _pad_batch_axis(a, pad: int):
 def _check_shards(shards: int) -> None:
     if shards is not None and shards > 1:
         raise NotImplementedError(
-            "separation_shards > 1 is not ported yet (ROADMAP Queue 1 "
-            "item 13, distributed and sharded solve)")
+            "separation_shards > 1 is not ported yet: separation "
+            "sharding with the pd-sharded preset is ROADMAP Queue 1 item "
+            "13's remainder")
 
 
 def _map_repulsive_batches(fn, consts, edge_args, chunk: int, shards: int):

@@ -93,7 +93,7 @@ class MulticutInstance(NamedTuple):
         return self.cost.device
 
     def to(self, device) -> "MulticutInstance":
-        return MulticutInstance(*(t.to(device) for t in self))
+        return type(self)(*(t.to(device) for t in self))
 
     def objective(self, labels: torch.Tensor) -> torch.Tensor:
         """Multicut objective <c, y>: sum of costs of cut edges under a node
@@ -177,41 +177,65 @@ def to_host_edges(inst: MulticutInstance):
 class StreamStats(NamedTuple):
     """Host-memory accounting of :func:`make_instance_streamed`: the
     ingest never holds more than one edge range plus one chunk of COO on
-    the host."""
+    a rank's host."""
     n_chunks: int           # COO chunks consumed
     n_edges: int            # valid edges ingested
     peak_host_elems: int    # max host-resident edge slots at any instant
                             # (range buffer + in-flight chunk)
 
 
+class EdgeRange(MulticutInstance):
+    """One rank's contiguous edge range of a padded instance: the rank's
+    ``[rank * E/S, (rank+1) * E/S)`` slice of u/v/cost/edge_valid (so
+    ``num_edges`` is E/S) and the full node_valid. What
+    ``make_instance_streamed(state_shards=S)`` gives each rank of the
+    state group, and what :func:`repro_torch.core.sharded.
+    solve_state_sharded` takes in place of the full instance (ranks past
+    the group hold an empty range)."""
+    __slots__ = ()
+
+
 def make_instance_streamed(chunks, num_nodes: int, pad_edges: int,
                            state_shards: int = 1,
                            pad_nodes: int | None = None, device=None,
-                           ) -> tuple[MulticutInstance, StreamStats]:
+                           ) -> tuple[MulticutInstance | EdgeRange,
+                                      StreamStats]:
     """Streaming instance ingest: build the padded edge arrays from an
     iterable of COO ``(u, v, cost)`` chunks, so the edge list is never
     materialised a second time on the host.
 
     ``chunks`` yields host arrays in final edge-id order; the input must be
     **duplicate-free** (merging parallel edges across chunks needs the
-    whole list; :func:`make_instance` merges duplicates). Each chunk is
-    validated like ``make_instance`` (id range, self-loop costs).
+    whole list; :func:`make_instance` merges duplicates). Each chunk's
+    edges that this rank keeps are validated like ``make_instance``'s (id
+    range, self-loop costs).
 
-    Edges are copied into one reusable host buffer of ``pad_edges`` slots
-    (pinned when the target is a CUDA device), which is then copied to
-    ``device`` in one asynchronous transfer per leaf. Peak host memory is
-    the buffer plus one chunk (returned in :class:`StreamStats`). One state
-    shard only: ``state_shards > 1`` (one buffer per edge range, each
-    shipped to its card) is ROADMAP Queue 1 item 13.
+    ``state_shards`` is resolved like the solver's
+    (``dist.resolve_state_shards``: clamped to the default process group's
+    ranks, 1 without one). With one shard the edges go into one reusable
+    host buffer of ``pad_edges`` slots and the result is the instance.
+    With S > 1 each rank of the state group keeps only its own edge range,
+    ``pad_edges / S`` slots, skips the chunks outside it, and returns its
+    :class:`EdgeRange` for ``solve_state_sharded``; this is one buffer per
+    rank on its host, not per card. The buffer is pinned when the target
+    is a CUDA device and copied there in one asynchronous transfer per
+    leaf. Peak host memory is the buffer plus one chunk (returned in
+    :class:`StreamStats`).
     """
-    if state_shards is not None and state_shards > 1:
-        raise NotImplementedError(
-            f"make_instance_streamed: state_shards={state_shards} is not "
-            f"ported yet (sharded ingest is ROADMAP Queue 1 item 13)")
+    import torch.distributed as dist
+    from repro_torch.core.dist import resolve_state_shards
+    S = resolve_state_shards(state_shards)
+    if pad_edges % S:
+        raise ValueError(f"pad_edges={pad_edges} must be divisible by the "
+                         f"{S} resolved state shard(s)")
     check_edge_addressing(pad_edges, where="make_instance_streamed")
     dev = resolve_device(device)
     pin = dev.type == "cuda"
-    bufs = [torch.zeros(pad_edges, dtype=dt, pin_memory=pin)
+    rank = dist.get_rank() if S > 1 else 0
+    E_loc = pad_edges // S if rank < S else 0
+    lo_e = rank * E_loc
+    hi_e = lo_e + E_loc
+    bufs = [torch.zeros(E_loc, dtype=dt, pin_memory=pin)
             for dt in (torch.int32, torch.int32, torch.float32, torch.bool)]
     buf_u, buf_v, buf_c, buf_ev = (b.numpy() for b in bufs)
     n_edges = 0
@@ -225,32 +249,37 @@ def make_instance_streamed(chunks, num_nodes: int, pad_edges: int,
             raise ValueError(
                 f"chunk {n_chunks}: u/v/cost must be 1-D arrays of equal "
                 f"length; got shapes {cu.shape}, {cv.shape}, {cc.shape}")
-        if len(cu) and (cu.min() < 0 or cv.min() < 0
-                        or max(cu.max(), cv.max()) >= num_nodes):
-            raise ValueError(f"chunk {n_chunks}: node ids must lie in "
-                             f"[0, {num_nodes})")
-        if len(cu) and np.any((cu == cv) & (cc != 0.0)):
-            raise ValueError(f"chunk {n_chunks}: self-loops must have zero "
-                             f"cost (see make_instance)")
-        if n_edges + len(cu) > pad_edges:
+        first, last = n_edges, n_edges + len(cu)
+        if last > pad_edges:
             raise ValueError(
                 f"streamed edges exceed pad_edges={pad_edges}; raise the "
                 f"pad (round_up_edges helps pick one)")
+        s0, s1 = max(first, lo_e), min(last, hi_e)
+        if s0 < s1:                         # the part of my range
+            ku, kv, kc = (x[s0 - first:s1 - first] for x in (cu, cv, cc))
+            if ku.min() < 0 or kv.min() < 0 \
+                    or max(ku.max(), kv.max()) >= num_nodes:
+                raise ValueError(f"chunk {n_chunks}: node ids must lie in "
+                                 f"[0, {num_nodes})")
+            if np.any((ku == kv) & (kc != 0.0)):
+                raise ValueError(f"chunk {n_chunks}: self-loops must have "
+                                 f"zero cost (see make_instance)")
+            sl = slice(s0 - lo_e, s1 - lo_e)
+            np.minimum(ku, kv, out=buf_u[sl])
+            np.maximum(ku, kv, out=buf_v[sl])
+            buf_c[sl] = kc
+            buf_ev[sl] = True
         n_chunks += 1
-        peak = max(peak, pad_edges + len(cu))
-        sl = slice(n_edges, n_edges + len(cu))
-        np.minimum(cu, cv, out=buf_u[sl])
-        np.maximum(cu, cv, out=buf_v[sl])
-        buf_c[sl] = cc
-        buf_ev[sl] = True
-        n_edges += len(cu)
+        peak = max(peak, E_loc + len(cu))
+        n_edges = last
     u, v, c, ev = (b.to(dev, non_blocking=pin) for b in bufs)
     Np = pad_nodes if pad_nodes is not None else num_nodes
     nv = torch.zeros(Np, dtype=torch.bool, device=dev)
     nv[:num_nodes] = True
-    inst = MulticutInstance(u=u, v=v, cost=c, edge_valid=ev, node_valid=nv)
-    return inst, StreamStats(n_chunks=n_chunks, n_edges=n_edges,
-                             peak_host_elems=peak)
+    kind = MulticutInstance if S == 1 else EdgeRange
+    return kind(u=u, v=v, cost=c, edge_valid=ev, node_valid=nv), \
+        StreamStats(n_chunks=n_chunks, n_edges=n_edges,
+                    peak_host_elems=peak)
 
 
 def round_up_edges(num_edges: int, state_shards: int = 1,

@@ -7,6 +7,8 @@ updated independently, so one pass runs over all triangles at once.
 This is the reference's per-edge layout; the solver's default route runs
 the whole phase as one kernel on compact triangle-edge ids instead
 (``kernels.triangle_mp.ops.mp_phase``), with the same bits.
+:func:`run_message_passing_sharded` runs that phase on one rank's edge
+range of the state group (:mod:`repro_torch.core.dist`).
 
 Triangle costs are stored directly (t_cost = −λ); the reparametrised edge
 cost is c^λ_e = c_e − Σ_t t_cost[t, slot(e)].
@@ -18,6 +20,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.cycles import Triangles
+from repro_torch.core.dist import blocked_sum, edge_range_start, \
+    gather_edge_field, tree_sum
 from repro_torch.kernels.triangle_mp.ref import lower_bound_terms
 from repro_torch.sparse.segment_ops import SegmentPlan, segment_plan, \
     segment_sum
@@ -153,3 +157,69 @@ def mp_phase_per_edge(cost, edge_valid, tri, tri_valid, iters: int):
     state = init_mp(Triangles(edges=tri, valid=tri_valid))
     state, c_rep, lb = run_message_passing(cost, edge_valid, state, iters)
     return state.t_cost, c_rep, lb
+
+
+def run_message_passing_sharded(cost_local, edge_valid_local, tri, tri_valid,
+                                iters: int, shards: int, group, mp=None):
+    """Sharded Alg. 2 on one rank of the state group: ``cost_local`` and
+    ``edge_valid_local`` are the rank's (E/S,) range, the triangles (global
+    edge ids) are the same on every rank. Returns (c_rep_local, lb).
+
+    Costs are constant during MP, so the triangles' slot costs cross ranks
+    in ONE halo exchange (``gather_edge_field``); then the whole phase runs
+    as ``mp`` (default: the fused ``triangle_mp`` phase, which launches the
+    kernel on a CUDA tensor) on a cost vector over the compact
+    triangle-edge ids, the ≤ 3T distinct ids of the valid slots relabelled
+    in ascending order. The relabelling keeps each edge's entries and
+    their order, so every slot quantity equals the replicated phase's bit
+    for bit. The compact c_rep lands on the owned edges; every other owned
+    edge keeps ``cost + 0.0``, as in the replicated phase.
+
+    The bound is the reference's: :func:`~repro_torch.core.dist.blocked_sum`
+    of the local edge term plus :func:`~repro_torch.core.dist.tree_sum` of
+    the triangle term, the same for every shard count (not ``mp``'s own
+    bound, which sums over the compact vector)."""
+    if mp is None:
+        from repro_torch.kernels.triangle_mp.ops import mp_phase as mp
+    T = tri.shape[0]
+    E_loc = cost_local.shape[0]
+    dev = cost_local.device
+    n = 3 * T
+    flat = tri.reshape(-1).long()
+    slot_ok = tri_valid[:, None].expand(T, 3).reshape(-1)
+    # the one halo exchange of the phase
+    cost_at = gather_edge_field(cost_local, flat, group)
+    # compact ids: distinct valid-slot edge ids in ascending order
+    big = torch.iinfo(torch.int64).max
+    keys, order = torch.sort(torch.where(slot_ok, flat,
+                                         torch.full_like(flat, big)))
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = keys[1:] != keys[:-1]
+    comp = torch.empty(n, dtype=torch.int64, device=dev)
+    comp[order] = torch.cumsum(head, 0) - 1
+    comp = torch.where(slot_ok, comp, torch.zeros_like(comp))
+    dead = torch.where(slot_ok, comp, torch.full_like(comp, n))
+    cost_c = torch.zeros(n + 1, dtype=cost_local.dtype, device=dev) \
+        .index_put_((dead,), cost_at)[:n]
+    used = torch.zeros(n + 1, dtype=torch.bool, device=dev) \
+        .index_put_((dead,), slot_ok)[:n]
+    t_cost, c_rep_c, _ = mp(cost_c, used, comp.to(torch.int32).view(T, 3),
+                            tri_valid, iters)
+    # land the compact c_rep on the owned edges (duplicate slots of one
+    # edge write the same value)
+    local = flat - edge_range_start(E_loc, group)
+    mine = slot_ok & (local >= 0) & (local < E_loc)
+    dest = torch.where(mine, local, torch.full_like(local, E_loc))
+    c_rep_local = torch.cat([cost_local + 0.0, cost_local.new_zeros(1)]) \
+        .index_put_((dest,), c_rep_c[comp])[:E_loc]
+
+    zero = torch.zeros_like(c_rep_local)
+    lb_e = blocked_sum(torch.where(edge_valid_local,
+                                   torch.minimum(c_rep_local, zero), zero),
+                       shards, group)
+    a, b, c = t_cost[:, 0], t_cost[:, 1], t_cost[:, 2]
+    mins = torch.stack([torch.zeros_like(a), a + b, a + c, b + c, a + b + c],
+                       dim=-1).min(dim=-1).values
+    lb_t = tree_sum(torch.where(tri_valid, mins, torch.zeros_like(mins))) \
+        if T else torch.zeros((), dtype=torch.float32, device=dev)
+    return c_rep_local, lb_e + lb_t

@@ -414,8 +414,11 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
                  mp=None, intersect=None, trace: bool = False, csr=None,
                  sep_node_mask=None):
     """Solve on the instance's device: every mode on both data paths
-    (``cfg.graph_impl``). The sharded solves (``state_shards``,
-    ``separation_shards > 1``) raise ``NotImplementedError`` naming their
+    (``cfg.graph_impl``). ``cfg.state_shards`` routes mode pd to the
+    edge-range-sharded solve (:func:`repro_torch.core.sharded.
+    solve_state_sharded`; every rank of the default process group calls
+    it, and ``inst`` may be the rank's ``EdgeRange``);
+    ``separation_shards > 1`` raises ``NotImplementedError`` naming its
     ROADMAP item.
 
     ``csr``/``sep_node_mask`` seed delta re-solves in modes pd and pd+
@@ -435,13 +438,20 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
                          "(csr/sep_node_mask): the carried CSR is "
                          "per-shard with local edge ids, not the "
                          "replicated one delta re-solves splice")
+    if cfg.state_shards and mode in ("p", "d"):
+        raise ValueError(
+            f"state_shards requires mode='pd' (got {mode!r}); the sharded "
+            f"solve supports 3-cycle separation only, and p/d have no "
+            f"edge-partitioned round to run")
     if cfg.state_shards:
-        raise NotImplementedError(
-            "state_shards is not ported yet (ROADMAP Queue 1 item 13)")
+        from repro_torch.core.sharded import solve_state_sharded
+        return solve_state_sharded(inst, cfg, mode=mode, mp=mp,
+                                   intersect=intersect, trace=trace)
     if cfg.separation_shards > 1:
         raise NotImplementedError(
-            "separation_shards > 1 is not ported yet (ROADMAP Queue 1 "
-            "item 13)")
+            "separation_shards > 1 is not ported yet: separation sharding "
+            "with the pd-sharded preset is ROADMAP Queue 1 item 13's "
+            "remainder")
     if mode == "p":
         return _solve_p_device(inst, cfg, trace=trace)
     if mode == "d":

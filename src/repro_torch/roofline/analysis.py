@@ -12,10 +12,11 @@ numbers of the card; a card set below its full power limit runs slower
 than they say, so every reading names the card and its limit beside it.
 
 The reference's ``collective_bytes`` parses XLA HLO text for collective
-ops; it has no torch counterpart. On one card nothing crosses an
-interconnect, so the collective term of every profile here is 0; the
-sharded solve over ``torch.distributed`` (ROADMAP Queue 1 item 13) is
-where collective traffic will be counted.
+ops; it has no torch counterpart. The profiles here are of one card's
+replicated round, whose collective term is 0. The sharded solve over
+``torch.distributed`` runs (``core/sharded.py``), but its profile, with
+the collective bytes counted from what the port's collectives send, is
+ROADMAP Queue 1 item 13's remainder.
 """
 from __future__ import annotations
 

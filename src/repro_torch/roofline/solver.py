@@ -40,7 +40,8 @@ How each number is taken, where the reference reads XLA's cost analysis:
   (:func:`loop_corrected`). In eager torch the depth-``mp_iters`` count is
   also taken directly; the profile asserts the two agree.
 
-A sharded round (``cfg.state_shards``) is ROADMAP Queue 1 item 13.
+The profile of a sharded round (``cfg.state_shards``) is ROADMAP Queue 1
+item 13's remainder.
 """
 from __future__ import annotations
 
@@ -292,8 +293,10 @@ def profile_solve_round(inst: MulticutInstance,
     bounds the round from above."""
     if cfg.state_shards:
         raise NotImplementedError(
-            "profile_solve_round: state_shards is not ported yet (the "
-            "sharded round is ROADMAP Queue 1 item 13)")
+            "profile_solve_round: the sharded roofline profile, with "
+            "collective bytes counted from what the port's collectives "
+            "send, is not ported yet (ROADMAP Queue 1 item 13's "
+            "remainder)")
     dev = inst.device
     impl = resolve_graph_impl(cfg.graph_impl, inst.num_nodes,
                               cfg.sparse_threshold)

@@ -264,9 +264,13 @@ def test_make_instance_streamed_validates():
     with pytest.raises(ValueError, match="equal"):
         tg.make_instance_streamed([([0, 1], [1], [2.0])], 3, pad_edges=4,
                                   device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tg.make_instance_streamed([ok], 3, pad_edges=4, state_shards=2,
-                                  device=CPU)
+    # without a process group state_shards clamps to one shard: the one
+    # range is the whole instance
+    inst, stats = tg.make_instance_streamed([ok], 3, pad_edges=4,
+                                            state_shards=2, device=CPU)
+    assert type(inst) is tg.MulticutInstance
+    _same_instance(inst, tg.make_instance(*ok, 3, pad_edges=4, device=CPU))
+    assert stats.peak_host_elems == 4 + 2
 
 
 def test_round_up_edges_and_networkx():

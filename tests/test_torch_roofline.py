@@ -267,9 +267,18 @@ def test_rama_arch_registry_and_cells():
             assert t.device.type == "meta"
             assert tuple(t.shape) == tuple(want[k].shape)
             assert str(t.dtype).split(".")[-1] == str(want[k].dtype)
-    for what in ("abstract_inputs", "step_fn"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            getattr(arch, what)(arch.shapes["dist_pd"])
+    # dist_pd: the reference's dist_inputs on a one-device mesh (one
+    # block per rank; one rank without a process group) and its round
+    import jax
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
+    ins = arch.abstract_inputs(arch.shapes["dist_pd"])
+    want = jrama.ARCH.dist_inputs(mesh, jrama.RAMA_SHAPES["dist_pd"])
+    assert set(ins) == set(want)
+    for k, t in ins.items():
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(want[k].shape)
+        assert str(t.dtype).split(".")[-1] == str(want[k].dtype)
+    assert callable(arch.step_fn(arch.shapes["dist_pd"]))
 
 
 def test_rama_pd_round_step_matches_reference():

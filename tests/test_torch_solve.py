@@ -10,6 +10,7 @@ objective, lower bound and lower-bound history are float sums that torch
 and XLA reduce in different orders, a few float32 ulps apart (measured
 ≤ 4e-7 relative): held at rtol 1e-5.
 """
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -82,9 +83,11 @@ def test_backends_and_facade_agree_on_cpu():
 
 
 def test_api_raises_for_unported_parts():
-    """What ROADMAP Queue 1 items 7 and 9 ported now runs: every mode on
-    the dense path (auto below 257 padded nodes), mode p on the sparse
-    path, and the traced solve. What is still unported raises, naming its
+    """What ROADMAP Queue 1 items 7, 9 and 13 ported now runs: every mode
+    on the dense path (auto below 257 padded nodes), mode p on the sparse
+    path, the traced solve, and ``state_shards``, which without a process
+    group clamps to one shard and equals the replicated sparse solve.
+    What is still unported (separation sharding) raises, naming its
     item."""
     inst = tg.grid_instance(6, 6, seed=0, device="cpu")   # 36 nodes: dense
     for mode in ("p", "pd", "pd+", "d"):
@@ -95,8 +98,19 @@ def test_api_raises_for_unported_parts():
     res, tr = tapi.solve(inst, graph_impl="sparse", trace=True,
                          device="cpu")
     assert int(tr.rounds) == int(res.rounds) >= 1
+    cfg = tapi.SolverConfig(state_shards=2, graph_impl="sparse",
+                            first_round_cycles45=False)
+    padded = tg.grid_instance(
+        6, 6, seed=0, device="cpu",
+        pad_edges=tg.round_up_edges(int(inst.edge_valid.sum())))
+    res = tapi.solve(padded, config=cfg, device="cpu")
+    ref = tapi.solve(padded, config=dataclasses.replace(cfg, state_shards=0),
+                     device="cpu")
+    for k in ("labels", "rounds", "n_contracted", "n_clusters"):
+        assert torch.equal(getattr(res, k), getattr(ref, k)), k
     with pytest.raises(NotImplementedError, match="item 13"):
-        tapi.solve(inst, config=tapi.SolverConfig(state_shards=2),
+        tapi.solve(inst, config=tapi.SolverConfig(separation_shards=2,
+                                                  graph_impl="sparse"),
                    device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         tapi.solve(inst, backend="pallas", device="cpu")
@@ -112,7 +126,8 @@ def test_api_raises_for_unported_parts():
 def test_port_imports_no_jax():
     """Importing the port (the solve server, delta solves, observability
     and the solve trace, the batch and registry entry points, the
-    baselines, the roofline profile and the multicut arch config
+    baselines, the roofline profile, the multicut arch config, the
+    collectives, the sharded solve and the local rank launcher
     included), and chip_smoke.py's own imports, load no jax and no module
     of the JAX package."""
     code = (
@@ -131,6 +146,8 @@ def test_port_imports_no_jax():
         "from repro_torch.core.dist import resolve_batch_shards\n"
         "import repro_torch.obs.trace, repro_torch.core.baselines\n"
         "import repro_torch.roofline, repro_torch.configs.rama_multicut\n"
+        "import repro_torch.core.dist, repro_torch.core.sharded\n"
+        "import repro_torch.launch.ranks\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -156,6 +173,8 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 5" in out.stdout and "phase 6" in out.stdout
     assert "phase 7" in out.stdout and "exact tick" in out.stdout
     assert "phase 8" in out.stdout and "streamed ingest" in out.stdout
+    assert "phase 9" in out.stdout and "bit-identical to S = 1" in \
+        out.stdout and "block decomposition" in out.stdout
     assert "traced pd+ sparse: bit-equal" in out.stdout
     assert "labels equal True" in out.stdout
     if not torch.cuda.is_available():
