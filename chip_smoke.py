@@ -140,7 +140,7 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    ``rama-multicut`` cells' steps (``pd_round_sm``, ``pd_round_lg``,
    ``mp_sweep_1m``, which must launch ``triangle_mp``) on inputs from a
    seed, timed, with their model-FLOPs rate.
-9. The edge-range-sharded solve and the block decomposition, last; the
+9. The edge-range-sharded solve and the block decomposition; the
    process group it makes is destroyed before the summary lines. (a) On
    an in-process NCCL group of one rank (a FileStore under
    ``chiprun_out/``): the main path's grid padded by ``round_up_edges``
@@ -162,7 +162,28 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    the distributed round on the one-rank group, the quotient of the
    contracted blocks solved, the bound below the replicated objective and
    the quotient's lifted objective; the ``dist_pd`` cell's step at its
-   own dims, timed.
+   own dims, timed. Each rank of (b) also profiles its sharded round
+   (``profile_solve_round``) and records that it destroyed its group.
+10. Sharding over cards in one process, on S copies of the one card
+   (``copies_of_card``: ``torch.cuda.device_count`` says S and the shard
+   device map sends every shard to ``cuda:0``; the log says so). (a) The
+   main path's instance at ``pd-sharded``: as resolved on the card (S =
+   1, the warm-up), then S = 2 and 4; labels, rounds, histories,
+   objective and bound bit-equal across S, to ``pd-chunked`` and to
+   phase 3's solve; per S one timed run (launch counters zeroed just
+   before and read just after; one triangle_mp phase per round, its
+   launches those of the counted phases) and the host syncs of another.
+   (b) ``solve_batch`` of four 128×128 grids at ``batch_shards`` 1, 2 and
+   4, bit-identical (means of 2, run in the order 1, 2, 4, 4, 2, 1);
+   phase 7's four 128×128 tiles through a router with ``batch_shards=2``,
+   each equal to ``api.solve`` of its padded tile, first-calls within the
+   budget. (a) and (b) then hold both multicut kernels against their
+   plain versions at every shape their runs gave them that no earlier
+   case covered (checks only, untimed). (c)
+   ``profile_solve_round`` of the main grid at ``pd-state-sharded`` on a
+   one-rank NCCL group (per phase wall, bytes, flops, collective bytes,
+   share of the bound), then phase 9 (b)'s two S = 2 profiles with each
+   rank's collective bytes.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -175,7 +196,8 @@ dense-path grid, phase 7's tiles at 12..16 squared with 16×16 and 17×17
 (the sparse route) in place of its two large shapes, and a 24×24 session
 grid with patches of 40, 5 and 5, phase 8 on 20×20 grids with 64-edge
 ingest chunks and small arch cells, phase 9 on a one-rank gloo group
-with 20×20 and 12×12 grids and a small ``dist_pd`` cell), with each
+with 20×20 and 12×12 grids and a small ``dist_pd`` cell, phase 10 on the
+20×20 grid and 16×16 batches), with each
 kernel wrapper running its plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
@@ -444,13 +466,13 @@ def phase_inputs(T: int, E: int, n_valid: int, gen):
 
 
 def phase_case(T: int, E: int, n_valid: int, gen, label: str,
-               iters: int = MP_ITERS) -> dict:
+               iters: int = MP_ITERS, timed: bool = True) -> dict:
     """The fused MP phase (``mp_phase``) against ``mp_phase_ref`` on the
     same inputs: t_cost, c_rep and lb bitwise equal; its launches; kernel
     ms of the whole call (plan, kernel, landing buffer, lower bound) and
     of the plain version; profiled device µs of the phase kernels per
     call and of the whole call; the kernels' bound from the plan's reads
-    and writes."""
+    and writes. ``timed=False`` keeps the check and drops the timings."""
     cost, ev, tri, valid = phase_inputs(T, E, n_valid, gen)
     fused = T <= sweep_ops.FUSED_MAX_T
     want_launches = (1 if fused else iters + 1) * (DEV.type == "cuda")
@@ -467,6 +489,12 @@ def phase_case(T: int, E: int, n_valid: int, gen, label: str,
               for g, w in zip(got, want))
     check(all(same), f"triangle_mp phase T={T}: (t_cost, c_rep, lb) "
           f"bitwise equal {same} (max err {err})")
+    rec = dict(label=label, shape=[T, 3], edges=E, n_valid=n_valid,
+               iters=iters, route="one launch" if fused else
+               "a launch per pass + landing", launches=want_launches,
+               bitwise=all(same), max_abs_err=err)
+    if not timed:
+        return rec
     # the kernels' own reads, writes and ops on these inputs
     ops, bytes_moved = sweep_ops.work(cost, tri, valid, iters)
     bound_ms, by = bound(bytes_moved, ops)
@@ -474,11 +502,7 @@ def phase_case(T: int, E: int, n_valid: int, gen, label: str,
     def call():
         return sweep_ops.mp_phase(cost, ev, tri, valid, iters)
     kernel_us = device_us(call, symbols=PHASE_SYMBOLS)
-    return dict(label=label, shape=[T, 3], edges=E, n_valid=n_valid,
-                iters=iters, route="one launch" if fused else
-                "a launch per pass + landing", launches=want_launches,
-                bitwise=all(same), max_abs_err=err,
-                kernel_ms=cuda_ms(call),
+    return dict(rec, kernel_ms=cuda_ms(call),
                 plain_ms=cuda_ms(lambda: mp_phase_ref(cost, ev, tri, valid,
                                                       iters)),
                 device_us=kernel_us, call_device_us=device_us(call),
@@ -500,7 +524,11 @@ def sorted_rows(R: int, W: int, n: int, gen) -> torch.Tensor:
     return torch.where(ar < deg, x, torch.full_like(x, n)).contiguous()
 
 
-def intersect_case(R: int, W: int, Wj: int, gen, ci=None) -> dict:
+def intersect_case(R: int, W: int, Wj: int, gen, ci=None,
+                   timed: bool = True) -> dict:
+    """``intersect_rows`` against ``intersect_rows_ref`` on fresh sorted
+    rows of this shape: equal; then (unless ``timed=False``) the kernel,
+    plain and library times and the bound."""
     n = 2 * max(W, Wj) + 8
     ci = sorted_rows(R, W, n, gen) if ci is None else ci
     cj = sorted_rows(R, Wj, n, gen)
@@ -513,6 +541,9 @@ def intersect_case(R: int, W: int, Wj: int, gen, ci=None) -> dict:
     equal = bool(torch.equal(got, want))
     err = float((got - want).abs().max()) if got.numel() else 0.0
     check(equal, f"cycle_intersect {(R, W, Wj)}: not equal (max err {err})")
+    if not timed:
+        return dict(shape=[[R, W], [R, Wj]], equal=equal, max_abs_err=err,
+                    matches=int((got >= 0).sum()))
     # one upper-bound search of ceil(log2(Wj + 1)) compares per element
     ops, bytes_moved = isect_ops.work(R, W, Wj)
     bound_ms, by = bound(bytes_moved, ops)
@@ -897,6 +928,23 @@ def all_launches() -> dict:
             "contract_matmul": cm_ops.launches}
 
 
+def path_shapes() -> dict:
+    """The shapes the multicut kernels' wrappers counted since the last
+    ``reset_counters``."""
+    return {"triangle_mp": dict(sweep_ops.shapes),
+            "cycle_intersect": dict(isect_ops.shapes)}
+
+
+def merge_shapes(into: dict, shapes: dict):
+    for name, counts in shapes.items():
+        for key, n in counts.items():
+            into[name][key] = into[name].get(key, 0) + n
+
+
+def shape_record(shapes: dict) -> dict:
+    return {k: {str(s): n for s, n in v.items()} for k, v in shapes.items()}
+
+
 def phase_launches(shapes: dict, iters: int = MP_ITERS) -> int:
     """triangle_mp launches that MP phases of these T counts make."""
     return sum(n * (1 if T <= sweep_ops.FUSED_MAX_T else iters + 1)
@@ -1081,8 +1129,7 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
     check(launches.pop("flash_attention") == 0
           and launches.pop("contract_matmul") == 0,
           "the sparse solve launched the attention or contraction kernel")
-    main_shapes = {"triangle_mp": dict(sweep_ops.shapes),
-                   "cycle_intersect": dict(isect_ops.shapes)}
+    main_shapes = path_shapes()
     peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
     log(f"  default solve: {first_s:.3f} s (first call), launches "
         f"{launches}, MP phases {sum(main_shapes['triangle_mp'].values())}"
@@ -1126,8 +1173,7 @@ def phase_main(h: int, w: int, max_neg: int) -> dict:
         first_call_s=first_s, reference_backend_s=ref_s,
         host_syncs=syncs, host_sync_sites=dict(sync_sites.most_common()),
         peak_bytes=peak, launches=launches, profile=prof,
-        shapes={k: {str(s): n for s, n in v.items()}
-                for k, v in main_shapes.items()})
+        shapes=shape_record(main_shapes))
     log(f"  wall {out['wall_s_median']:.3f} s (median of 3), rounds "
         f"{out['rounds']}, objective {out['objective']}, lower bound "
         f"{out['lower_bound']}, host syncs {syncs} "
@@ -2280,9 +2326,9 @@ INTS9 = ("labels", "rounds", "n_contracted", "n_clusters")
 P9_RANK = """
 import dataclasses, time
 import numpy as np, torch
-from repro_torch.launch.ranks import init_process_group
-rank, world = init_process_group("gloo")
-from repro_torch import api
+import torch.distributed as dist
+from repro_torch.launch.ranks import process_group
+from repro_torch import api, roofline
 from repro_torch.core import graph
 from repro_torch.kernels.cycle_intersect import ops as isect_ops
 from repro_torch.kernels.triangle_mp import ops as sweep_ops
@@ -2290,39 +2336,78 @@ DEV, (H, W), OUT = torch.device(%(dev)r), %(grid)r, %(out)r
 def sync():
     if DEV.type == "cuda":
         torch.cuda.synchronize()
-inst = graph.grid_instance(H, W, seed=0, pad_edges=%(pad)d, device=DEV)
-cfg = dataclasses.replace(api.get_preset("pd-state-sharded").config,
-                          state_shards=2)
-sweep_ops.launches = isect_ops.launches = 0
-api.solve(inst, config=cfg, device=DEV)             # warm-up, counted
-launches = [sweep_ops.launches, isect_ops.launches]
-sync()
-t0 = time.perf_counter()
-res = api.solve(inst, config=cfg, device=DEV)
-sync()
-wall = time.perf_counter() - t0
-res_t, tr = api.solve(inst, config=cfg, trace=True, device=DEV)
-out = {k: x.cpu().numpy() for k, x in res._asdict().items()}
-out.update({"traced/" + k: x.cpu().numpy()
-            for k, x in res_t._asdict().items()})
-out.update({"trace/" + k: x.cpu().numpy() for k, x in tr._asdict().items()})
+out = {}
+with process_group("gloo") as (rank, world):
+    inst = graph.grid_instance(H, W, seed=0, pad_edges=%(pad)d, device=DEV)
+    cfg = dataclasses.replace(api.get_preset("pd-state-sharded").config,
+                              state_shards=2)
+    sweep_ops.launches = isect_ops.launches = 0
+    api.solve(inst, config=cfg, device=DEV)         # warm-up, counted
+    launches = [sweep_ops.launches, isect_ops.launches]
+    sync()
+    t0 = time.perf_counter()
+    res = api.solve(inst, config=cfg, device=DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    res_t, tr = api.solve(inst, config=cfg, trace=True, device=DEV)
+    out.update({k: x.cpu().numpy() for k, x in res._asdict().items()})
+    out.update({"traced/" + k: x.cpu().numpy()
+                for k, x in res_t._asdict().items()})
+    out.update({"trace/" + k: x.cpu().numpy()
+                for k, x in tr._asdict().items()})
+    # phase 10 (c): the sharded round's roofline profile at S = 2
+    prof = roofline.profile_solve_round(inst, cfg)
+    for ph, rec in prof["phases"].items():
+        for k, x in rec.items():
+            if isinstance(x, (bool, int, float)):
+                out[f"profile/{ph}/{k}"] = np.array(x)
+out["group_destroyed"] = np.array(not dist.is_initialized())
 np.savez(f"{OUT}.rank{rank}.npz", launches=np.array(launches),
          wall=np.array(wall), **out)
 """
 
 
-def sharded_shape_cases(shapes: dict, main: dict, E: int, gen) -> dict:
-    """Hold each kernel against its plain version at the shapes the
-    sharded path gave it that phase 3's cases did not cover."""
+def case_keys(*case_sets: dict) -> dict:
+    """The shapes these cases held each kernel at: (T, edges) of each
+    triangle_mp case, (R, W, Wj) of each cycle_intersect case."""
+    keys = {"triangle_mp": set(), "cycle_intersect": set()}
+    for cases in case_sets:
+        keys["triangle_mp"] |= {(c["shape"][0], c["edges"])
+                                for c in cases["triangle_mp"]}
+        keys["cycle_intersect"] |= {
+            (c["shape"][0][0], c["shape"][0][1], c["shape"][1][1])
+            for c in cases["cycle_intersect"]}
+    return keys
+
+
+def shape_cases(shapes: dict, covered: dict, E: int, gen, label: str,
+                timed: bool = True) -> dict:
+    """Hold each kernel against its plain version at the shapes a path
+    gave it (``shapes``, as the wrappers count them) that no key of
+    ``covered`` (see ``case_keys``) held it at."""
     out = {"triangle_mp": [], "cycle_intersect": []}
-    for T in sorted(set(shapes["triangle_mp"])
-                    - set(main["main_shapes"]["triangle_mp"])):
-        out["triangle_mp"].append(phase_case(T, E, T // 8, gen,
-                                             "sharded path"))
+    for T in sorted(set(shapes["triangle_mp"])):
+        if (T, E) not in covered["triangle_mp"]:
+            out["triangle_mp"].append(phase_case(T, E, T // 8, gen, label,
+                                                 timed=timed))
     for (R, W, Wj) in sorted(set(shapes["cycle_intersect"])
-                             - set(main["main_shapes"]["cycle_intersect"])):
-        out["cycle_intersect"].append(intersect_case(R, W, Wj, gen))
+                             - covered["cycle_intersect"]):
+        out["cycle_intersect"].append(intersect_case(R, W, Wj, gen,
+                                                     timed=timed))
     return out
+
+
+def check_phase_launches(launches: dict, shapes: dict, rounds: int,
+                         what: str):
+    """On the card, the triangle_mp launches are those the counted MP
+    phases make, and there is one MP phase per solver round."""
+    check(DEV.type != "cuda" or launches["cycle_intersect"] > 0,
+          f"{what} did not launch cycle_intersect: {launches}")
+    check(DEV.type != "cuda" or (
+        launches["triangle_mp"] == phase_launches(shapes["triangle_mp"])
+        and sum(shapes["triangle_mp"].values()) == rounds),
+          f"{what}: {launches['triangle_mp']} triangle_mp launches for MP "
+          f"phases {shapes['triangle_mp']} in {rounds} rounds")
 
 
 def phase9_one_rank(h: int, w: int, main: dict, gen) -> dict:
@@ -2349,17 +2434,10 @@ def phase9_one_rank(h: int, w: int, main: dict, gen) -> dict:
     reset_counters()
     res, first_s = timed_solve(inst, preset="pd-state-sharded")
     launches = all_launches()
-    shapes = {"triangle_mp": dict(sweep_ops.shapes),
-              "cycle_intersect": dict(isect_ops.shapes)}
+    shapes = path_shapes()
     r = host(res)
     rounds = int(r["rounds"])
-    check(DEV.type != "cuda" or launches["cycle_intersect"] > 0,
-          f"the sharded solve did not launch cycle_intersect: {launches}")
-    check(DEV.type != "cuda" or (
-        launches["triangle_mp"] == phase_launches(shapes["triangle_mp"])
-        and sum(shapes["triangle_mp"].values()) == rounds),
-          f"sharded solve: {launches['triangle_mp']} triangle_mp launches "
-          f"for MP phases {shapes['triangle_mp']} in {rounds} rounds")
+    check_phase_launches(launches, shapes, rounds, "the sharded solve")
     check(launches["flash_attention"] == 0
           and launches["contract_matmul"] == 0,
           "the sharded solve launched the attention or contraction kernel")
@@ -2399,9 +2477,7 @@ def phase9_one_rank(h: int, w: int, main: dict, gen) -> dict:
         replicated_objective=float(rr["objective"]),
         replicated_lower_bound=float(rr["lower_bound"]),
         n_contracted=r["n_contracted"].tolist(), launches=launches,
-        shapes={k: {str(s): n for s, n in v.items()}
-                for k, v in shapes.items()},
-        first_call_s=first_s, replicated_first_call_s=rep_first,
+        shapes=shape_record(shapes), first_call_s=first_s, replicated_first_call_s=rep_first,
         wall_s=walls, wall_s_median=med, replicated_wall_s=rep_walls,
         replicated_wall_s_median=rep_med, wall_ratio=med / rep_med,
         host_syncs=sum(sites.values()),
@@ -2427,7 +2503,12 @@ def phase9_one_rank(h: int, w: int, main: dict, gen) -> dict:
             f"{prof['wall_ms'] / 1e3:.3f} s wall; phases {prof['phases']}; "
             f"kernels {prof['kernels']}; top "
             f"{prof['top_device_kernels'][:6]} [{CARD_NAME}]")
-    out["cases"] = sharded_shape_cases(shapes, main, inst.num_edges, gen)
+    main_keys = {"triangle_mp": {(T, main["instance"]["pad_edges"])
+                                 for T in main["main_shapes"]["triangle_mp"]},
+                 "cycle_intersect": set(main["main_shapes"][
+                     "cycle_intersect"])}
+    out["cases"] = shape_cases(shapes, main_keys, inst.num_edges, gen,
+                               "sharded path")
     return out
 
 
@@ -2458,6 +2539,8 @@ def phase9_two_ranks(h: int, w: int) -> dict:
                                                          one[k])]
             check(not diff, f"rank {rank}: S = 2 {prefix or 'untraced '}"
                   f"!= S = 1 in {diff}")
+        check(bool(got["group_destroyed"]),
+              f"rank {rank} exited with its process group alive")
         n_mp, n_isect = (int(x) for x in got["launches"])
         check(DEV.type != "cuda" or (n_mp > 0 and n_isect > 0),
               f"rank {rank} launched triangle_mp {n_mp}, cycle_intersect "
@@ -2465,10 +2548,15 @@ def phase9_two_ranks(h: int, w: int) -> dict:
         R = int(got["trace/rounds"])
         rows = {k: got["trace/" + k][:R].tolist()
                 for k in ("shard_edges", "shard_topk", "shard_halo")}
+        prof = {}
+        for k, x in got.items():
+            if k.startswith("profile/"):
+                ph, key = k.split("/")[1:]
+                prof.setdefault(ph, {})[key] = x.item()
         out["ranks"].append(dict(wall_s=float(got["wall"]),
                                  launches=dict(triangle_mp=n_mp,
                                                cycle_intersect=n_isect),
-                                 rounds=R, **rows))
+                                 rounds=R, profile=prof, **rows))
         log(f"  two ranks over gloo, rank {rank}: bit-identical to S = 1 "
             f"({R} rounds), wall {float(got['wall']):.3f} s, launches "
             f"triangle_mp {n_mp}, cycle_intersect {n_isect}; per-shard "
@@ -2546,30 +2634,290 @@ def phase9_blocks(group, rehearse: bool, gen) -> dict:
     return out
 
 
-def phase_sharded(main: dict, gen, rehearse: bool) -> dict:
-    """Phase 9: (a) and (c) on a one-rank process group (NCCL on the card,
-    gloo in a rehearsal), (b) in two child processes; the group is
-    destroyed before the phase returns."""
-    t0 = time.perf_counter()
-    key = "rehearse" if rehearse else "card"
-    store = ROOT / "chiprun_out" / "phase9.store"
+@contextlib.contextmanager
+def one_rank_group(name: str):
+    """An in-process process group of one rank (NCCL on the card, gloo in
+    a rehearsal) over a FileStore under ``chiprun_out/``, destroyed when
+    the block ends."""
+    store = ROOT / "chiprun_out" / f"{name}.store"
     store.parent.mkdir(parents=True, exist_ok=True)
     store.unlink(missing_ok=True)
     kw = {}
     if DEV.type == "cuda":
         torch.cuda.set_device(0)
         kw["device_id"] = torch.device("cuda", 0)
+    ranks.import_before_group()
     tdist.init_process_group("nccl" if DEV.type == "cuda" else "gloo",
                              store=tdist.FileStore(str(store), 1), rank=0,
                              world_size=1, **kw)
     try:
-        out = dict(one_rank=phase9_one_rank(*P9[key]["main"], main, gen))
-        out["two_ranks"] = phase9_two_ranks(*P9[key]["pair"])
-        out["blocks"] = phase9_blocks(tdist.group.WORLD, rehearse, gen)
+        yield tdist.group.WORLD
     finally:
         tdist.destroy_process_group()
+
+
+def phase_sharded(main: dict, gen, rehearse: bool) -> dict:
+    """Phase 9: (a) and (c) on a one-rank process group (NCCL on the card,
+    gloo in a rehearsal), (b) in two child processes; the group is
+    destroyed before the phase returns."""
+    t0 = time.perf_counter()
+    key = "rehearse" if rehearse else "card"
+    with one_rank_group("phase9") as group:
+        out = dict(one_rank=phase9_one_rank(*P9[key]["main"], main, gen))
+        out["two_ranks"] = phase9_two_ranks(*P9[key]["pair"])
+        out["blocks"] = phase9_blocks(group, rehearse, gen)
     out["phase_s"] = time.perf_counter() - t0
     log(f"  phase 9 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: separation and batch sharding over copies of the one card, and
+# the sharded round's roofline profile
+# ---------------------------------------------------------------------------
+
+P10_SHARDS = (1, 2, 4)
+P10_BATCH = {"card": (128, 128), "rehearse": (16, 16)}
+
+
+@contextlib.contextmanager
+def copies_of_card(S: int):
+    """S copies of the one card stand in for S cards: while the block
+    runs, ``torch.cuda.device_count`` says S and the shard device map
+    sends every shard to the instance's own device. A run on S real
+    cards would place shard r on ``cuda:r``."""
+    count, devices = torch.cuda.device_count, dist_mod.shard_devices
+    torch.cuda.device_count = lambda: S
+    dist_mod.shard_devices = lambda shards, device: \
+        [torch.device(device)] * shards
+    try:
+        yield
+    finally:
+        torch.cuda.device_count = count
+        dist_mod.shard_devices = devices
+
+
+def phase10_separation(main: dict, covered: dict, gen) -> dict:
+    """(a) The main path's instance at ``pd-sharded``: as resolved on the
+    one card (S = 1, the warm-up), then S = 2 and 4 over copies of the
+    card, against ``pd-chunked`` (the same config without shards) and
+    phase 3's default solve: bit-equal everywhere. Per S: one timed run
+    with the launch counters zeroed just before and read just after (one
+    triangle_mp phase per round, its launches those of the counted
+    phases), and the host syncs of one more run. Then each kernel is held
+    against its plain version at every shape these runs gave it that no
+    key of ``covered`` held it at."""
+    inst = main["_inst"]
+    S1 = dist_mod.resolve_separation_shards(
+        api.get_preset("pd-sharded").config.separation_shards)
+    check(S1 == 1, f"pd-sharded resolved to {S1} shards on one card")
+    log(f"  pd-sharded asks for 4 shards; clamped to {S1} on the one card; "
+        f"S = 2 and 4 run over copies of cuda:0 (device count and shard "
+        f"device map replaced)")
+    sites1 = count_syncs(lambda: api.solve(inst, preset="pd-sharded",
+                                           device=DEV))     # warm-up
+    chunked = host(api.solve(inst, preset="pd-chunked", device=DEV))
+    diff = same_result(chunked, main["_result"])
+    check(not diff, f"pd-chunked != phase 3's default solve in {diff}")
+    out, every = {}, {"triangle_mp": {}, "cycle_intersect": {}}
+    for S in P10_SHARDS:
+        with copies_of_card(S) if S > 1 else contextlib.nullcontext():
+            reset_counters()
+            res, wall = timed_solve(inst, preset="pd-sharded")
+            launches, shapes = all_launches(), path_shapes()
+            sites = sites1 if S == 1 else count_syncs(
+                lambda: api.solve(inst, preset="pd-sharded", device=DEV))
+        r = host(res)
+        diff = same_result(r, chunked)
+        check(not diff, f"pd-sharded at S = {S} != pd-chunked in {diff}")
+        check(launches["flash_attention"] == 0
+              and launches["contract_matmul"] == 0,
+              f"S = {S}: the attention or contraction kernel launched")
+        check_phase_launches(launches, shapes, int(r["rounds"]),
+                             f"pd-sharded at S = {S}")
+        merge_shapes(every, shapes)
+        out[S] = dict(wall_s=wall, host_syncs=sum(sites.values()),
+                      host_sync_sites=dict(sites.most_common(6)),
+                      launches=dict(triangle_mp=launches["triangle_mp"],
+                                    cycle_intersect=launches[
+                                        "cycle_intersect"]),
+                      shapes=shape_record(shapes))
+        log(f"  pd-sharded S = {S}: bit-equal to pd-chunked and phase 3 "
+            f"({int(r['rounds'])} rounds, objective {float(r['objective'])}"
+            f", bound {float(r['lower_bound'])}); wall {wall:.3f} s, host "
+            f"syncs {out[S]['host_syncs']}, launches {out[S]['launches']}, "
+            f"{len(shapes['cycle_intersect'])} cycle_intersect shapes "
+            f"[{CARD_NAME}]")
+    out["cases"] = shape_cases(every, covered, inst.num_edges, gen,
+                               "separation-sharded path", timed=False)
+    log_shape_cases("pd-sharded at S = 1, 2, 4", every, out["cases"])
+    return out
+
+
+def log_shape_cases(what: str, shapes: dict, cases: dict):
+    log(f"  {what}: triangle_mp T {sorted(shapes['triangle_mp'])}, "
+        f"cycle_intersect (R, W, Wj) {sorted(shapes['cycle_intersect'])}; "
+        f"{len(cases['triangle_mp'])} + {len(cases['cycle_intersect'])} "
+        f"of them new, each equal to its plain version (max abs err "
+        f"{max([c['max_abs_err'] for v in cases.values() for c in v], default=0.0)})")
+
+
+def phase10_batch(rehearse: bool, covered: dict, gen) -> dict:
+    """(b) ``solve_batch`` of four grids at ``batch_shards`` 1, 2 and 4,
+    bit-identical, each timed twice in the order 1, 2, 4, 4, 2, 1 (means);
+    then phase 7's four tiles of that size served through a router with
+    ``batch_shards=2``: each result equals ``api.solve`` of its padded
+    instance, first-calls within the budget. Every run's triangle_mp
+    launches are those of its counted MP phases; each kernel is then held
+    against its plain version at every shape of these runs that no key of
+    ``covered`` held it at."""
+    h, w = P10_BATCH["rehearse" if rehearse else "card"]
+    insts = [graph.grid_instance(h, w, seed=s, device=DEV)
+             for s in range(4)]
+    batch = api.stack_instances(insts)
+    api.solve_batch(batch, device=DEV)                          # warm-up
+    out, base, walls = {}, None, {S: [] for S in P10_SHARDS}
+    every = {"triangle_mp": {}, "cycle_intersect": {}}
+    for rep in range(2):
+        for S in P10_SHARDS if rep == 0 else P10_SHARDS[::-1]:
+            with copies_of_card(S) if S > 1 else contextlib.nullcontext():
+                reset_counters()
+                sync()
+                t0 = time.perf_counter()
+                res = api.solve_batch(batch, batch_shards=S, device=DEV)
+                sync()
+                walls[S].append(time.perf_counter() - t0)
+                launches, shapes = all_launches(), path_shapes()
+            r = host(res)
+            base = r if base is None else base
+            diff = same_result(r, base)
+            check(not diff, f"solve_batch at batch_shards = {S} != 1 in "
+                  f"{diff}")
+            check_phase_launches(launches, shapes, int(r["rounds"].sum()),
+                                 f"solve_batch at batch_shards = {S}")
+            if rep == 0:
+                merge_shapes(every, shapes)
+            out[S] = dict(wall_s=walls[S],
+                          wall_s_mean=statistics.mean(walls[S]),
+                          launches=dict(
+                              triangle_mp=launches["triangle_mp"],
+                              cycle_intersect=launches["cycle_intersect"]),
+                          shapes=shape_record(shapes))
+    for S in P10_SHARDS:
+        log(f"  solve_batch of 4 grids {h}x{w}, batch_shards = {S}: "
+            f"bit-identical, wall {out[S]['wall_s_mean']:.3f} s (mean "
+            f"of {[round(t, 3) for t in walls[S]]}), launches "
+            f"{out[S]['launches']} [{CARD_NAME}]")
+    tiles = [i for i in tile_stream(rehearse) if i.num_nodes == h * w]
+    eng = solve_server.SolveEngine(
+        router=solve_server.default_router(batch_shards=2),
+        policy=solve_server.BucketPolicy(), batch_cap=SERVE_BATCH_CAP,
+        device=DEV)
+    with copies_of_card(2):
+        reset_counters()
+        results, tickets, wall = traced_stream(eng, tiles)
+        launches, shapes = all_launches(), path_shapes()
+        ladder = eng._ladder(tickets[0].route)
+    check(DEV.type != "cuda" or (
+        launches["cycle_intersect"] > 0 and launches["triangle_mp"]
+        == phase_launches(shapes["triangle_mp"]) > 0),
+          f"batch_shards=2 route: launches {launches} for MP phases "
+          f"{shapes['triangle_mp']}")
+    keys = {(t.bucket, eng._static_route.get(t.route, t.route))
+            for t in tickets}
+    budget = len({k[0] for k in keys}) * len({k[1] for k in keys}) * \
+        len(ladder)
+    st = eng.stats
+    check(st.n_completed == len(tiles) and st.compiles <= budget,
+          f"sharded route: {st.n_completed} served, {st.compiles} "
+          f"first-calls over the budget {budget}")
+    for inst, t, res in zip(tiles, tickets, results):
+        ref = api.solve(solve_server.pad_instance(inst, t.bucket),
+                        mode=t.route.mode, config=t.route.config,
+                        backend=t.route.backend, device=DEV)
+        diff = same_result(stripped(res, inst.num_nodes),
+                           stripped(ref, inst.num_nodes))
+        check(not diff, f"batch_shards=2 route != api.solve of the padded "
+              f"{inst.num_nodes}-node tile in {diff}")
+    out["engine"] = dict(tiles=len(tiles), wall_s=wall,
+                         dispatches=st.n_dispatches, compiles=st.compiles,
+                         compile_budget=budget, ladder=list(ladder),
+                         launches=dict(
+                             triangle_mp=launches["triangle_mp"],
+                             cycle_intersect=launches["cycle_intersect"]),
+                         shapes=shape_record(shapes))
+    cases = shape_cases(every, covered, insts[0].num_edges, gen,
+                        "batch-sharded path", timed=False)
+    log_shape_cases(f"solve_batch of 4 grids {h}x{w}", every, cases)
+    new = case_keys(cases)
+    E_tile = solve_server.pad_instance(tiles[0], tickets[0].bucket).num_edges
+    served = shape_cases(shapes, {k: covered[k] | new[k] for k in covered},
+                         E_tile, gen, "batch-sharded route", timed=False)
+    log_shape_cases("the batch_shards=2 route", shapes, served)
+    out["cases"] = {k: cases[k] + served[k] for k in cases}
+    log(f"  router with batch_shards=2: {len(tiles)} tiles {h}x{w} in "
+        f"{wall:.3f} s, {st.n_dispatches} dispatches, ladder {list(ladder)}"
+        f", first-calls {st.compiles} (budget {budget}); each equal to "
+        f"api.solve of its padded tile [{CARD_NAME}]")
+    return out
+
+
+def log_sharded_profile(what: str, prof: dict):
+    for ph, rec in prof["phases"].items():
+        log(f"  {what} {ph}: wall {rec['wall_s'] * 1e3:.3f} ms, bytes "
+            f"{rec['bytes_accessed']} (per device "
+            f"{rec['bytes_accessed_per_device']}), flops {rec['flops']}, "
+            f"collective bytes {rec['collective_bytes']} (this rank "
+            f"{rec['rank_collective_bytes']}), {rec['dominant']}-bound, "
+            f"share of bound {rec['bound_share']:.4f} [{CARD_NAME}]")
+
+
+def phase10_profile(h: int, w: int, sharded: dict) -> dict:
+    """(c) ``profile_solve_round`` of the main grid at ``pd-state-sharded``
+    on a one-rank group (S = 1), per phase; then the S = 2 profile each
+    of phase 9 (b)'s two gloo ranks took of its 128×128 grid."""
+    inst = graph.grid_instance(
+        h, w, seed=0, pad_edges=graph.round_up_edges(grid_edges(h, w)),
+        device=DEV)
+    cfg = api.get_preset("pd-state-sharded").config
+    with one_rank_group("phase10"):
+        prof = roofline.profile_solve_round(inst, cfg)
+    check(prof["state_shards"] == 1 and all(
+        rec["collective_bytes"] == 0 for rec in prof["phases"].values()),
+          "the one-rank profile counted collective bytes")
+    log_sharded_profile("one rank, main grid", prof)
+    two = []
+    for rank, rr in enumerate(sharded["two_ranks"]["ranks"]):
+        p2 = rr["profile"]
+        check(set(p2) == set(roofline.PHASES) and all(
+            rec["collective_bytes_per_device"] > 0 for rec in p2.values()),
+              f"rank {rank}'s S = 2 profile: {sorted(p2)}")
+        for ph, rec in p2.items():
+            log(f"  S = 2 rank {rank} {ph}: wall {rec['wall_s'] * 1e3:.3f} "
+                f"ms, rank bytes {rec['rank_bytes_accessed']}, rank "
+                f"collective bytes {rec['rank_collective_bytes']}, job "
+                f"{rec['collective_bytes']}, share of bound "
+                f"{rec['bound_share']:.4f} [{CARD_NAME}]")
+        two.append(p2)
+    return dict(one_rank=prof, two_ranks=two)
+
+
+def phase_shards(main: dict, main_cases: dict, sharded: dict, gen,
+                 rehearse: bool) -> dict:
+    """Phase 10: (a) separation sharding, (b) batch sharding, (c) the
+    sharded round's roofline profile. (a) and (b) hold the kernels at
+    the shapes of their paths that phase 3's and phase 9's cases did not
+    cover, and (b) also at those (a) did not."""
+    t0 = time.perf_counter()
+    covered = case_keys(main_cases, sharded["one_rank"]["cases"])
+    out = dict(separation=phase10_separation(main, covered, gen))
+    covered = case_keys(main_cases, sharded["one_rank"]["cases"],
+                        out["separation"]["cases"])
+    out.update(batch=phase10_batch(rehearse, covered, gen),
+               profile=phase10_profile(*P9["rehearse" if rehearse
+                                          else "card"]["main"], sharded))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 10 took {out['phase_s']:.1f} s [{CARD_NAME}]")
     return out
 
 
@@ -2588,7 +2936,7 @@ def main_path_cases(main: dict, gen) -> dict:
 
 def kernel_line(cases: dict, main_cases: dict, main: dict,
                 lm: dict, dense: dict, served: dict, traced: dict,
-                sharded: dict) -> dict:
+                sharded: dict, shards: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
         if name == "contract_matmul":
@@ -2642,8 +2990,10 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
         key = [top, 3] if name == "triangle_mp" else \
             [[top[0], top[1]], [top[0], top[2]]]
         head = next(c for c in main_cases[name] if c["shape"] == key)
-        sharded_cases = sharded["one_rank"]["cases"][name]
-        every = cases[name] + main_cases[name] + sharded_cases
+        every = (cases[name] + main_cases[name]
+                 + sharded["one_rank"]["cases"][name]
+                 + shards["separation"]["cases"][name]
+                 + shards["batch"]["cases"][name])
         prof = main.get("profile", {})
         if name == "triangle_mp":
             extra = dict(
@@ -2683,6 +3033,12 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             sharded_launches=sharded["one_rank"]["launches"][name],
             two_rank_launches=[r["launches"][name]
                                for r in sharded["two_ranks"]["ranks"]],
+            separation_sharded_launches={
+                S: shards["separation"][S]["launches"][name]
+                for S in P10_SHARDS},
+            batch_sharded_launches={
+                S: shards["batch"][S]["launches"][name]
+                for S in P10_SHARDS},
             work=head["work"],
             device_us_per_launch=prof.get("kernels", {}).get(
                 name, {}).get("device_us_per_launch"),
@@ -2754,9 +3110,15 @@ def main(argv=None) -> int:
         log("phase 9: the edge-range-sharded solve and the block "
             "decomposition")
         record["sharded"] = phase_sharded(main_rec, gen, args.rehearse)
+        log("phase 10: separation and batch sharding over copies of the "
+            "card, the sharded round's roofline")
+        record["shards"] = phase_shards(main_rec, main_cases,
+                                        record["sharded"], gen,
+                                        args.rehearse)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
                            record["dense"], record["serve"],
-                           record["trace"], record["sharded"])
+                           record["trace"], record["sharded"],
+                           record["shards"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -57,10 +57,17 @@ no trace. The edge-range-sharded solve (``state_shards``, the
 of the default ``torch.distributed`` group calls :func:`solve` with the
 same instance (or its own ``EdgeRange`` from
 ``make_instance_streamed(state_shards=...)``) and gets the same result;
-without a process group the shard count clamps to 1. Not ported, ROADMAP
-Queue 1 item 13's remainder: ``separation_shards > 1`` (the
-``pd-sharded`` preset) and a clamped ``batch_shards > 1`` raise
-``NotImplementedError``.
+without a process group the shard count clamps to 1.
+
+**Sharding over cards in one process.** ``separation_shards`` (the
+``pd-sharded`` preset) spreads each separation's repulsive-edge batch over
+cards, and ``batch_shards`` (:func:`solve_batch`, batched
+:func:`compiled_solve`, the serving engine's routes) splits a batch's
+leading axis into S contiguous slices, slice r solved slot by slot on
+``cuda:r`` (:func:`repro_torch.core.dist.shard_devices`) and the results
+stacked back on the batch's device. Both counts are clamped to the cards
+present before the registry key is formed, and both are bit-identical to
+one shard. The slices run one after another from the host thread.
 """
 from __future__ import annotations
 
@@ -69,8 +76,9 @@ from functools import lru_cache
 
 import torch
 
+from repro_torch.core import dist as _dist
 from repro_torch.core.dist import resolve_batch_shards, \
-    resolve_state_shards
+    resolve_separation_shards, resolve_state_shards
 from repro_torch.core.graph import (
     GRAPH_IMPLS, ROW_CAP_FLOOR, MulticutInstance, attractive_degree_p95,
     make_instance, resolve_device, resolve_graph_impl,
@@ -161,6 +169,11 @@ for _p in (
                                separation_chunk=64),
            "CSR PD with chunked separation: peak separation memory bounded "
            "by separation_chunk, not max_neg (bit-identical results)"),
+    Preset("pd-sharded", "pd",
+           dataclasses.replace(_PAPER, graph_impl="sparse",
+                               separation_chunk=64, separation_shards=4),
+           "CSR PD with the repulsive chunk axis spread over up to 4 cards "
+           "(clamped to the cards present; bit-identical)"),
     Preset("pd-state-sharded", "pd",
            dataclasses.replace(_PAPER, graph_impl="sparse",
                                first_round_cycles45=False, state_shards=4),
@@ -213,12 +226,16 @@ class _Entry:
     and backend resolved. Counts a trace at the first call of each input
     signature (shapes, dtypes, devices), when it also builds the kernels
     of a ``"cuda"`` backend on the card. A batched entry solves the
-    leading axis slot by slot and stacks the results."""
+    leading axis slot by slot and stacks the results; with ``shards`` > 1
+    it first splits the axis into that many contiguous slices, solves
+    slice r on the r-th device of :func:`~repro_torch.core.dist.
+    shard_devices` and stacks the slices back on the batch's device."""
 
-    def __init__(self, run, batched: bool, backend: str):
+    def __init__(self, run, batched: bool, backend: str, shards: int = 1):
         self._run = run
         self._batched = batched
         self._backend = backend
+        self._shards = shards
         self._seen: set = set()
 
     def __call__(self, *args):
@@ -237,9 +254,23 @@ class _Entry:
             if B < 1:
                 raise ValueError("a batched call needs a leading batch "
                                  "axis of at least one slot")
-            outs = [self._run(*tree_map(lambda x, b=b: x[b], args))
-                    for b in range(B)]
-            out = tree_map(lambda *xs: torch.stack(xs), *outs)
+            S = self._shards
+            if B % S:
+                raise ValueError(
+                    f"batch size {B} is not divisible by the {S} resolved "
+                    f"batch shard(s); pad the batch (see repro_torch.serve."
+                    f"pad_batch) or pick a shard count that divides it")
+            home, per = leaves[0].device, B // S
+            parts = []
+            for r, dev in enumerate(_dist.shard_devices(S, home)):
+                part = tree_map(
+                    lambda x, r=r, dev=dev: x[r * per:(r + 1) * per].to(dev),
+                    args)
+                outs = [self._run(*tree_map(lambda x, b=b: x[b], part))
+                        for b in range(per)]
+                parts.append(tree_map(lambda *xs: torch.stack(xs), *outs))
+            out = parts[0] if S == 1 else tree_map(
+                lambda *xs: torch.cat([x.to(home) for x in xs]), *parts)
         _record_ready(out)
         return out
 
@@ -264,7 +295,16 @@ def _make_registry(maxsize: int):
             raise ValueError(f"trace=True applies to kind='solve' "
                              f"callables only (got kind={kind!r})")
         if batch_shards > 1:
-            resolve_batch_shards(batch_shards)  # raises: item 13's rest
+            if kind != "solve":
+                raise ValueError("batch_shards applies to kind='solve' "
+                                 "callables only (delta batches are not "
+                                 "sharded)")
+            if cfg.separation_shards > 1:
+                raise ValueError(
+                    "batch_shards and SolverConfig.separation_shards are "
+                    "mutually exclusive (one device axis): route large "
+                    "instances to separation sharding OR shard the batch "
+                    "axis")
         if batched and cfg.state_shards:
             raise ValueError(
                 "state_shards and batched solves are mutually exclusive "
@@ -288,7 +328,7 @@ def _make_registry(maxsize: int):
         else:
             raise ValueError(f"unknown executable kind {kind!r}; expected "
                              f"one of {KINDS}")
-        return _Entry(run, batched, backend)
+        return _Entry(run, batched, backend, batch_shards if batched else 1)
 
     return _compiled
 
@@ -311,8 +351,9 @@ def compiled_solve(mode: str | None = None,
                    batched: bool = False, batch_shards: int = 1,
                    trace: bool = False):
     """The cached callable :func:`solve` / :func:`solve_batch` would
-    dispatch to. ``batch_shards`` is clamped to the cards present before
-    the key is formed, so both spellings share one entry."""
+    dispatch to. ``batch_shards`` (batched callables only) is clamped to
+    the cards present before the key is formed, so both spellings share
+    one entry."""
     mode, config, backend = _normalize(mode, config, backend, preset)
     if batch_shards > 1 and not batched:
         raise ValueError("batch_shards applies to batched executables only")
@@ -390,6 +431,9 @@ def _normalize(mode, config, backend, preset, graph_impl=None):
             raise ValueError(f"unknown graph_impl {graph_impl!r}; expected "
                              f"one of {GRAPH_IMPLS}")
         config = dataclasses.replace(config, graph_impl=graph_impl)
+    if config.separation_shards > 1:
+        config = dataclasses.replace(config, separation_shards=(
+            resolve_separation_shards(config.separation_shards)))
     backend = DEFAULT_BACKEND if backend is None else backend
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
@@ -451,12 +495,15 @@ def solve_batch(batch: MulticutInstance, mode: str | None = None,
     """Solve a stacked batch of same-shape instances (every leaf with a
     leading batch axis, see :func:`stack_instances`) on ``device``; the
     result is batched the same way (see :func:`unstack_results`), each
-    slot equal to the unbatched solve of that slot bit for bit."""
+    slot equal to the unbatched solve of that slot bit for bit.
+    ``batch_shards > 1`` splits the batch axis over that many cards
+    (clamped to the cards present; the batch size must divide evenly),
+    bit-identical to the unsharded solve."""
     mode, config, backend = _normalize(mode, config, backend, preset,
                                        graph_impl)
-    shards = resolve_batch_shards(batch_shards)
     batch = _on(batch, device)
-    return _compiled(mode, config, backend, True, shards, "solve", False,
+    return _compiled(mode, config, backend, True,
+                     resolve_batch_shards(batch_shards), "solve", False,
                      _state_key(config))(batch)
 
 

@@ -15,7 +15,13 @@ instance's free padded slots (shared by both paths). The reference's
 streams become Python loops. Sparse separation splits into a candidate
 phase (per-repulsive-edge, read-only) and an allocate/assemble phase in
 canonical (repulsive-edge, chord-kind) order, so results do not depend on
-``separation_chunk``. ``separation_shards > 1`` is not ported yet.
+``separation_chunk``. ``separation_shards`` = S > 1 splits the candidate
+phase's batch into S contiguous shards, shard r on the r-th device of
+:func:`repro_torch.core.dist.shard_devices` (the reference's
+``shard_map`` over ``separation_mesh(S)``, single-controller here too:
+one process, one shard after another from the host); the winners are
+gathered back on the instance's device, where chords are allocated once,
+so results do not depend on S either.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import dist as _dist
 from repro_torch.core.contraction import adjacency_dense
 from repro_torch.core.graph import (
     CsrGraph, DEFAULT_SPARSE_THRESHOLD, MulticutInstance, csr_filter,
@@ -31,6 +38,7 @@ from repro_torch.core.graph import (
 )
 from repro_torch.kernels.cycle_intersect.ref import intersect_rows_ref
 from repro_torch.sparse.segment_ops import segment_max, segment_min
+from repro_torch.tree import tree_map
 
 
 class DenseAdj(NamedTuple):
@@ -369,28 +377,35 @@ def _pad_batch_axis(a, pad: int):
     return torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))], dim=0)
 
 
-def _check_shards(shards: int) -> None:
-    if shards is not None and shards > 1:
-        raise NotImplementedError(
-            "separation_shards > 1 is not ported yet: separation "
-            "sharding with the pd-sharded preset is ROADMAP Queue 1 item "
-            "13's remainder")
-
-
 def _map_repulsive_batches(fn, consts, edge_args, chunk: int, shards: int):
     """Stream a per-repulsive-edge candidate function over the batch axis
     in chunks of ``chunk`` edges (``chunk <= 0``: the whole batch at once).
     ``fn`` treats edges independently, so the output equals the
-    whole-batch call for every chunk size."""
-    _check_shards(shards)
+    whole-batch call for every chunk size and shard count.
+
+    ``shards`` > 1 (resolved by :func:`separate`) pads the batch to a
+    multiple of S·C (with ``chunk <= 0``, C = ⌈M/S⌉: one chunk per shard)
+    and gives shard r the contiguous rows [r·Mp/S, (r+1)·Mp/S) on its
+    device, with its own copy of ``consts``; it scans its own chunks, and
+    the outputs come back to the batch's device in edge order."""
     M = edge_args[0].shape[0]
     C = M if chunk <= 0 else max(1, min(chunk, M))
-    if C >= M:
+    S = shards
+    if S > 1 and chunk <= 0:
+        C = -(-M // S)
+    if S == 1 and C >= M:
         return fn(consts, *edge_args)
-    Mp = -(-M // C) * C
+    Mp = -(-M // (S * C)) * (S * C)
     padded = tuple(_pad_batch_axis(a, Mp - M) for a in edge_args)
-    outs = [fn(consts, *(a[s:s + C] for a in padded))
-            for s in range(0, Mp, C)]
+    home = padded[0].device
+    per = Mp // S
+    shard_outs = []
+    for r, dev in enumerate(_dist.shard_devices(S, home)):
+        local = tuple(a[r * per:(r + 1) * per].to(dev) for a in padded)
+        cst = tree_map(lambda x: x.to(dev), consts)
+        shard_outs.append([fn(cst, *(a[s:s + C] for a in local))
+                           for s in range(0, per, C)])
+    outs = [tuple(y.to(home) for y in o) for so in shard_outs for o in so]
     cat = tuple(torch.cat(ys, dim=0) for ys in zip(*outs))
     return tuple(y[: (y.shape[0] // Mp) * M] for y in cat)
 
@@ -446,11 +461,14 @@ def _run_long_bucket(fn, consts, edge_args, is_long, chunk: int, shards: int,
                      w_short: int, w_long: int):
     """Long-bucket pass at the wide window, chunk size scaled by
     w_short/w_long so its per-chunk element budget matches the short
-    pass."""
-    _check_shards(shards)
+    pass. Sharded runs take the ungated streamer, as the reference does:
+    the gate is a data-dependent skip (a host sync) that would break the
+    static shard split; only long lanes are ever read either way."""
     M = edge_args[0].shape[0]
     base = chunk if chunk > 0 else M
     C = max(1, (base * w_short) // w_long)
+    if shards > 1:
+        return _map_repulsive_batches(fn, consts, edge_args, C, shards)
     return _map_long_chunks(fn, consts, edge_args, is_long, C)
 
 
@@ -660,9 +678,12 @@ def separate(inst: MulticutInstance, max_neg: int, max_tri_per_edge: int,
     the sparse path to return that CSR with the round's fresh chords
     spliced in (``result.csr``). ``sep_node_mask`` ((N,) bool, optional)
     restricts repulsive-edge selection to edges touching the mask on both
-    paths (warm delta re-solves). The dense path ignores ``csr``,
-    ``intersect``, the row caps and the chunking."""
+    paths (warm delta re-solves). ``separation_shards`` is clamped to the
+    cards present here, once; the sparse helpers take the count as given.
+    The dense path ignores ``csr``, ``intersect``, the row caps, the
+    chunking and the shards."""
     impl = resolve_graph_impl(graph_impl, inst.num_nodes, sparse_threshold)
+    separation_shards = _dist.resolve_separation_shards(separation_shards)
     if impl == "dense":
         adj = build_adjacency(inst)
         tri3 = separate_triangles(inst, adj, max_neg, max_tri_per_edge,

@@ -25,10 +25,24 @@ boundary constraints only relaxes the problem); the quotient of the
 contracted blocks and the boundary edges (:func:`merge_blocks_quotient`)
 is small enough for one card.
 
-Not ported (ROADMAP Queue 1 item 13's remainder): separation sharding
-(``separation_shards``) and batch sharding (``batch_shards``).
+*Separation and batch sharding* (``separation_shards``, ``batch_shards``)
+use no ranks: one process spreads one step of a replicated solve (the
+repulsive-edge batch of separation, or the slots of a batch) over the
+devices :func:`shard_devices` names, shard r on ``cuda:r``, and gathers
+the results back on the instance's device. Integers are gathered and no
+float is summed across shards, so the output does not depend on S.
+
+*Collective bytes*: inside :func:`count_collective_bytes` every
+collective below adds the bytes this rank contributes to it (numel ×
+element size of its operand; for :func:`broadcast`, the source rank's
+tensor) when its group has more than one rank. A group of one sends
+nothing; gloo's copies of CUDA tensors through host memory are not
+counted.
 """
 from __future__ import annotations
+
+import contextlib
+import weakref
 
 import numpy as np
 import torch
@@ -42,7 +56,8 @@ __all__ = [
     "all_sum_int", "blocked_sum", "broadcast", "combine_node_best",
     "edge_range_start", "gather_edge_field", "group_rank", "group_size",
     "local_pd_round", "make_dist_pd_round", "merge_blocks_quotient",
-    "partition_instance", "resolve_batch_shards", "resolve_state_shards",
+    "count_collective_bytes", "partition_instance", "resolve_batch_shards",
+    "resolve_separation_shards", "resolve_state_shards", "shard_devices",
     "state_group", "tree_sum",
 ]
 
@@ -88,6 +103,30 @@ def _wire(x: torch.Tensor, group) -> torch.Tensor:
     return x.contiguous()
 
 
+_COUNTERS: list[dict] = []     # the open count_collective_bytes records
+
+
+@contextlib.contextmanager
+def count_collective_bytes():
+    """Count what this rank's collectives send while the ``with`` body
+    runs: yields a dict whose ``bytes`` and ``calls`` grow with every
+    collective over a group of more than one rank."""
+    rec = {"bytes": 0, "calls": 0}
+    _COUNTERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _COUNTERS.remove(rec)
+
+
+def _count_sent(x: torch.Tensor, group) -> None:
+    if _COUNTERS and group_size(group) > 1:
+        n = x.numel() * x.element_size()
+        for rec in _COUNTERS:
+            rec["bytes"] += n
+            rec["calls"] += 1
+
+
 def _unwire(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.to(device=like.device, dtype=like.dtype)
 
@@ -102,6 +141,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x.unsqueeze(0)
     S = group_size(group)
+    _count_sent(x, group)
     w = _wire(x.reshape((1,) + tuple(x.shape)), group)
     out = torch.empty((S * w.shape[0],) + tuple(w.shape[1:]), dtype=w.dtype,
                       device=w.device)
@@ -112,6 +152,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     if group is None:
         return x
+    _count_sent(x, group)
     w = _wire(x.reshape(-1), group)
     w = w.clone() if w.data_ptr() == x.data_ptr() else w
     dist.all_reduce(w, op=op, group=group)
@@ -143,6 +184,8 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     received tensor."""
     if group is None:
         return x
+    if dist.get_rank() == src:
+        _count_sent(x, group)
     w = _wire(x.reshape(-1), group)
     w = w.clone() if w.data_ptr() == x.data_ptr() else w
     dist.broadcast(w, src=src, group=group)
@@ -153,7 +196,18 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
 # The edge-range state group
 # ---------------------------------------------------------------------------
 
+# Subgroups made by ``state_group``, by count, under "world" the default
+# group they were made from. Groups are held by weak reference, so the
+# cache keeps none alive after ``destroy_process_group``: a gloo group's
+# worker threads are joined only when the group object is freed (see
+# ``repro_torch.launch.ranks``). A rank outside a subgroup keeps the
+# ``NON_GROUP_MEMBER`` sentinel, so it never calls ``new_group`` twice.
 _STATE_GROUPS: dict = {}
+
+
+def _cached_group(key):
+    entry = _STATE_GROUPS.get(key)
+    return entry() if isinstance(entry, weakref.ref) else entry
 
 
 def resolve_state_shards(shards: int | None) -> int:
@@ -186,29 +240,45 @@ def state_group(shards: int):
                          f"rank(s) of the default process group")
     if shards == world:
         return dist.group.WORLD
-    if _STATE_GROUPS.get("world") is not dist.group.WORLD:
+    if _cached_group("world") is not dist.group.WORLD:
         _STATE_GROUPS.clear()       # a new default group drops the old
-        _STATE_GROUPS["world"] = dist.group.WORLD
-    if shards not in _STATE_GROUPS:
-        _STATE_GROUPS[shards] = dist.new_group(ranks=list(range(shards)))
-    return _STATE_GROUPS[shards]
+        _STATE_GROUPS["world"] = weakref.ref(dist.group.WORLD)
+    group = _cached_group(shards)
+    if group is None:
+        group = dist.new_group(ranks=list(range(shards)))
+        _STATE_GROUPS[shards] = group \
+            if group is dist.GroupMember.NON_GROUP_MEMBER \
+            else weakref.ref(group)
+    return group
 
 
 def resolve_batch_shards(shards: int | None) -> int:
-    """Clamp a requested batch-shard count to the CUDA devices present (1
-    on a host without one), so a router asking for 4 still serves on one
-    card. A clamped count above 1 raises ``NotImplementedError``: batch
-    sharding in ``solve_batch`` and the engine's sharded routes are ROADMAP
-    Queue 1 item 13's remainder."""
+    """Clamp a requested batch- or separation-shard count to the CUDA
+    devices present (1 on a host without one), so a router or the
+    ``pd-sharded`` preset asking for 4 still runs on one card (the
+    reference clamps to ``jax.device_count()``)."""
     if shards is None or shards <= 1:
         return 1
-    n = min(int(shards), max(1, torch.cuda.device_count()))
-    if n > 1:
-        raise NotImplementedError(
-            f"batch_shards={n} is not ported yet: batch sharding in "
-            f"solve_batch and the engine's sharded routes is ROADMAP Queue "
-            f"1 item 13's remainder")
-    return n
+    return min(int(shards), max(1, torch.cuda.device_count()))
+
+
+# the reference's name for the same clamp (``repro.core.cycles``)
+resolve_separation_shards = resolve_batch_shards
+
+
+def shard_devices(shards: int, device) -> list[torch.device]:
+    """The device of each of ``shards`` shards of work whose inputs lie on
+    ``device``: ``cuda:0 .. cuda:S-1`` for a CUDA instance, the CPU S
+    times for a CPU one, and ``device`` itself for one shard. Raises when
+    a shard's card is missing: nothing falls back to fewer shards."""
+    device = torch.device(device)
+    if device.type != "cuda" or shards == 1:
+        return [device] * shards
+    n = torch.cuda.device_count()
+    if shards > n:
+        raise ValueError(f"{shards} shards need {shards} CUDA devices; "
+                         f"{n} present")
+    return [torch.device("cuda", r) for r in range(shards)]
 
 
 def edge_range_start(num_local_edges: int, group) -> int:

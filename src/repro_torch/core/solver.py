@@ -418,8 +418,9 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
     edge-range-sharded solve (:func:`repro_torch.core.sharded.
     solve_state_sharded`; every rank of the default process group calls
     it, and ``inst`` may be the rank's ``EdgeRange``);
-    ``separation_shards > 1`` raises ``NotImplementedError`` naming its
-    ROADMAP item.
+    ``separation_shards`` spreads each sparse separation's candidate
+    phase over that many cards (clamped to those present; bit-identical
+    to one).
 
     ``csr``/``sep_node_mask`` seed delta re-solves in modes pd and pd+
     (see :func:`_solve_pd_device`); modes p and d ignore both.
@@ -447,11 +448,6 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
         from repro_torch.core.sharded import solve_state_sharded
         return solve_state_sharded(inst, cfg, mode=mode, mp=mp,
                                    intersect=intersect, trace=trace)
-    if cfg.separation_shards > 1:
-        raise NotImplementedError(
-            "separation_shards > 1 is not ported yet: separation sharding "
-            "with the pd-sharded preset is ROADMAP Queue 1 item 13's "
-            "remainder")
     if mode == "p":
         return _solve_p_device(inst, cfg, trace=trace)
     if mode == "d":

@@ -12,11 +12,10 @@ numbers of the card; a card set below its full power limit runs slower
 than they say, so every reading names the card and its limit beside it.
 
 The reference's ``collective_bytes`` parses XLA HLO text for collective
-ops; it has no torch counterpart. The profiles here are of one card's
-replicated round, whose collective term is 0. The sharded solve over
-``torch.distributed`` runs (``core/sharded.py``), but its profile, with
-the collective bytes counted from what the port's collectives send, is
-ROADMAP Queue 1 item 13's remainder.
+ops; it has no torch counterpart. The port counts what its collectives
+send instead (``repro_torch.core.dist.count_collective_bytes``): 0 for
+one card's replicated round, each rank's own bytes for the sharded round
+over ``torch.distributed``, held against ``ici_bw``.
 """
 from __future__ import annotations
 

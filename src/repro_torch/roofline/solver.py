@@ -39,9 +39,16 @@ How each number is taken, where the reference reads XLA's cost analysis:
   once, so it extrapolates the MP phase from depths 1 and 2
   (:func:`loop_corrected`). In eager torch the depth-``mp_iters`` count is
   also taken directly; the profile asserts the two agree.
-
-The profile of a sharded round (``cfg.state_shards``) is ROADMAP Queue 1
-item 13's remainder.
+* **A sharded round** (``cfg.state_shards``, :func:`profile_solve_round`
+  called by every rank of the default process group, as the solve is):
+  each rank of the state group counts its own three phases at the local
+  shapes the sharded solve carries, and its collective bytes from what
+  the port's collectives send (:func:`repro_torch.core.dist.
+  count_collective_bytes`). The reference reads one SPMD program and
+  multiplies by S; here the ranks are real, so the job totals are each
+  count summed over the group, the per-device numbers its maximum over
+  the ranks (the roofline terms use those: the ranks run at once), and
+  the wall the slowest rank's.
 """
 from __future__ import annotations
 
@@ -49,17 +56,23 @@ import time
 from collections import Counter
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core.contraction import (
-    choose_contraction_set, contract, contract_csr,
+    choose_contraction_set, choose_contraction_set_sharded, contract,
+    contract_csr, contract_sharded,
 )
 from repro_torch.core.cycles import separate
-from repro_torch.core.graph import (
-    MulticutInstance, csr_from_instance, resolve_graph_impl,
+from repro_torch.core.dist import (
+    all_max, all_min, all_sum_int, count_collective_bytes, state_group,
 )
+from repro_torch.core.graph import (
+    MulticutInstance, build_csr, csr_from_instance, resolve_graph_impl,
+)
+from repro_torch.core.message_passing import run_message_passing_sharded
 from repro_torch.core.solver import SolverConfig, resolve_intersect, \
     resolve_mp
 from repro_torch.kernels.cycle_intersect import ops as isect_ops
@@ -207,8 +220,9 @@ def count_work(fn, *args, mp_inputs=None) -> tuple[dict, object]:
     ``work()`` of each hand-kernel launch it made. ``mp_inputs`` =
     (cost, edge_valid, tri, tri_valid, iters) are the inputs of the one
     ``mp_phase`` call ``fn`` makes, if it makes one (that kernel's work
-    depends on its data, not only its shapes). Returns (counts, fn's
-    result)."""
+    depends on its data, not only its shapes), or a function of no
+    arguments that returns them once ``fn`` has run. Returns (counts,
+    fn's result)."""
     before = _kernel_state()
     with WorkCounter() as wc:
         res = fn(*args)
@@ -221,6 +235,8 @@ def count_work(fn, *args, mp_inputs=None) -> tuple[dict, object]:
             raise ValueError(f"count_work: {mp_launches} triangle_mp "
                              f"launches in {calls} calls; need the inputs "
                              f"of exactly one mp_phase call")
+        if callable(mp_inputs):
+            mp_inputs = mp_inputs()
         cost, ev, tri, valid, iters = mp_inputs
         f, b = mp_ops.work(cost, tri, valid, iters)
         k_flops += f
@@ -290,13 +306,10 @@ def profile_solve_round(inst: MulticutInstance,
     passing + contraction round on ``inst`` (on its device) under ``cfg``,
     through ``backend``'s phase functions (the hand kernels by default).
     The per-phase walls exclude what runs between phases, so their sum
-    bounds the round from above."""
+    bounds the round from above. A config with ``state_shards`` profiles
+    the edge-range-sharded round (:func:`_profile_solve_round_sharded`)."""
     if cfg.state_shards:
-        raise NotImplementedError(
-            "profile_solve_round: the sharded roofline profile, with "
-            "collective bytes counted from what the port's collectives "
-            "send, is not ported yet (ROADMAP Queue 1 item 13's "
-            "remainder)")
+        return _profile_solve_round_sharded(inst, cfg, backend, hw)
     dev = inst.device
     impl = resolve_graph_impl(cfg.graph_impl, inst.num_nodes,
                               cfg.sparse_threshold)
@@ -373,6 +386,154 @@ def profile_solve_round(inst: MulticutInstance,
         "device": str(dev),
         "timer": "cuda_events" if dev.type == "cuda" else "host_clock",
         "mp_iters": cfg.mp_iters,
+        "phases": phases,
+        "round_wall_s": sum(p["wall_s"] for p in phases.values()),
+        "round_roofline_s": sum(p["roofline_s"] for p in phases.values()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# The edge-range-sharded round
+# ---------------------------------------------------------------------------
+
+_SUMMED = ("flops", "bytes_accessed", "collective_bytes", "torch_ops",
+           "kernel_flops", "kernel_bytes")
+
+
+def _sharded_phase_record(counts: dict, wall_s: float, hw: Hardware,
+                          group, device) -> dict:
+    """Phase record of one rank's ``counts`` over the state group: the
+    whole-job totals (each count summed over the ranks, by
+    ``all_sum_int``), ``*_per_device`` (its maximum over the ranks) and
+    this rank's own ``rank_*``; ``same_on_every_rank`` says whether every
+    count agreed, which makes the job exactly per-device × S, the
+    reference's identity. The roofline terms use the per-device numbers
+    and the wall is the slowest rank's: the ranks run at once."""
+    mine = torch.tensor([counts[k] for k in _SUMMED], dtype=torch.int64,
+                        device=device)
+    job = all_sum_int(mine, group).tolist()
+    top = all_max(mine, group).tolist()
+    low = all_min(mine, group).tolist()
+    wall = float(all_max(torch.tensor([wall_s], dtype=torch.float64,
+                                      device=device), group)[0])
+    rec = dict(zip(_SUMMED, job))
+    for k, hi, mn in zip(_SUMMED, top, low):
+        rec[f"{k}_per_device"] = hi
+        rec[f"rank_{k}"] = counts[k]
+    rec["same_on_every_rank"] = top == low
+    rec["kernel_launches"] = counts["kernel_launches"]
+    rec["collective_calls"] = counts["collective_calls"]
+    terms = roofline_terms(rec["flops_per_device"],
+                           rec["bytes_accessed_per_device"],
+                           rec["collective_bytes_per_device"], hw)
+    roof = step_time_estimate(terms)
+    return {**rec, "wall_s": wall, "rank_wall_s": wall_s, "terms": terms,
+            "dominant": dominant_term(terms), "roofline_s": roof,
+            "bound_share": roof / wall if wall > 0 else None}
+
+
+def _count_rank(fn, *args, mp_inputs=None) -> tuple[dict, object]:
+    """:func:`count_work` with this rank's collective bytes."""
+    with count_collective_bytes() as sent:
+        counts, out = count_work(fn, *args, mp_inputs=mp_inputs)
+    counts["collective_bytes"] = sent["bytes"]
+    counts["collective_calls"] = sent["calls"]
+    return counts, out
+
+
+def _profile_solve_round_sharded(inst, cfg: SolverConfig,
+                                 backend: str | None, hw: Hardware):
+    """Per-phase attribution of one edge-range-partitioned PD round
+    (:mod:`repro_torch.core.sharded`), called by every rank of the default
+    process group (or alone, without one). Each rank of the state group
+    runs separation, message passing and contraction at exactly the local
+    shapes ``solve_state_sharded`` carries, each phase fed the previous
+    one's real outputs; ranks past the state group take no part and get
+    None.
+
+    As in the reference, the separation record includes the local CSR
+    build (the solve builds it once and carries it through contraction)
+    and MP is counted at depths 1 and 2 and extrapolated, here also
+    counted at depth ``mp_iters`` and checked against the extrapolation,
+    collective bytes included. Records: :func:`_sharded_phase_record`."""
+    from repro_torch.core.sharded import (
+        _rank_range, _separate_triangles_state_sharded,
+        validate_state_sharded,
+    )
+    shards = validate_state_sharded(inst, cfg, "pd")
+    group = state_group(shards)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank >= shards:
+        return None
+    dev = inst.device
+    N = inst.num_nodes
+    mp = resolve_mp(backend)
+    intersect = resolve_intersect(backend)
+    u, v, c, ev = _rank_range(inst, shards, rank)
+    nv = inst.node_valid
+    phases = {}
+
+    def record(name, counts, wall_fn, *args):
+        phases[name] = _sharded_phase_record(
+            counts, _wall(wall_fn, *args, device=dev), hw, group, dev)
+
+    # --- separation, the local CSR build included
+    def sep_fn(u_, v_, c_, ev_):
+        csr = build_csr(u_, v_, ev_, N)
+        return _separate_triangles_state_sharded(u_, v_, c_, ev_, csr, N,
+                                                 cfg, shards, group,
+                                                 intersect)
+
+    counts, (tri, tri_ok) = _count_rank(sep_fn, u, v, c, ev)
+    record("separation", counts, sep_fn, u, v, c, ev)
+
+    # --- message passing at depths 1, 2 and mp_iters
+    def mp_at(depth):
+        seen = {}
+
+        def mp_seen(*a):
+            seen["inputs"] = a
+            return mp(*a)
+
+        return _count_rank(run_message_passing_sharded, c, ev, tri, tri_ok,
+                           depth, shards, group, mp_seen,
+                           mp_inputs=lambda: seen["inputs"])
+
+    (d1, _), (d2, _) = mp_at(1), mp_at(2)
+    direct, (c_rep, _) = mp_at(cfg.mp_iters)
+    for k in ("flops", "bytes_accessed", "collective_bytes"):
+        extrapolated = loop_corrected(d1[k], d2[k], cfg.mp_iters)
+        if extrapolated != direct[k]:
+            raise AssertionError(
+                f"profile_solve_round (sharded): message passing {k} at "
+                f"depth {cfg.mp_iters}: {direct[k]} counted, {extrapolated}"
+                f" extrapolated from depths 1 and 2")
+    record("message_passing", direct, run_message_passing_sharded, c, ev,
+           tri, tri_ok, cfg.mp_iters, shards, group, mp)
+    phases["message_passing"]["loop"] = {
+        "iters": cfg.mp_iters,
+        "flops_depth1": d1["flops"], "flops_depth2": d2["flops"],
+        "bytes_depth1": d1["bytes_accessed"],
+        "bytes_depth2": d2["bytes_accessed"]}
+
+    # --- contraction
+    def con_fn(u_, v_, c_, ev_, nv_):
+        S_loc = choose_contraction_set_sharded(
+            u_, v_, c_, ev_, nv_, cfg.matching_rounds, cfg.forest_rounds,
+            cfg.switch_frac, cfg.contract_frac, shards, group)
+        return contract_sharded(u_, v_, c_, ev_, nv_, S_loc, shards, group)
+
+    counts, _ = _count_rank(con_fn, u, v, c_rep, ev, nv)
+    record("contraction", counts, con_fn, u, v, c_rep, ev, nv)
+
+    return {
+        "impl": "sparse",
+        "hw": hw.name,
+        "device": str(dev),
+        "timer": "cuda_events" if dev.type == "cuda" else "host_clock",
+        "mp_iters": cfg.mp_iters,
+        "state_shards": shards,
+        "rank": rank,
         "phases": phases,
         "round_wall_s": sum(p["wall_s"] for p in phases.values()),
         "round_roofline_s": sum(p["roofline_s"] for p in phases.values()),

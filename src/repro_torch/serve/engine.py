@@ -25,9 +25,11 @@ into work for a fixed set of registry entries:
    padding to ``batch_cap``.
 3. **Dispatch** goes through :func:`repro_torch.api.compiled_solve` — the
    registry behind ``api.solve`` — as one batched call per (bucket,
-   route). The engine parks each dispatch on a per-backend in-flight
-   window (``max_inflight`` deep) and **harvests** it on a later pump,
-   once the CUDA event recorded after it completes
+   route); a route with ``batch_shards`` > 1 gets the sharded entry,
+   which solves slice r of the batch on card r and gathers the slices
+   back before it records its event. The engine parks each dispatch on a
+   per-backend in-flight window (``max_inflight`` deep) and **harvests**
+   it on a later pump, once the CUDA event recorded after it completes
    (:func:`repro_torch.api.tree_ready`); a full window back-pressures by
    waiting on its oldest entry. ``max_inflight=0`` is the synchronous
    engine; per-request results are bit-identical either way, because the

@@ -182,9 +182,13 @@ def test_tree_ready_and_batch_shards(monkeypatch):
     if torch.cuda.device_count() <= 1:
         assert tdist.resolve_batch_shards(4) == 1       # clamped to one
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdist.resolve_batch_shards(4)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    assert tdist.resolve_batch_shards(4) == 4     # four cards: no clamp
+    batch = tapi.stack_instances([inst, inst])
+    cfg = tapi.SolverConfig(**CFG)
+    got = tapi.solve_batch(batch, config=cfg, batch_shards=2, device="cpu")
+    _bitwise(got, tapi.solve_batch(batch, config=cfg, device="cpu"))
+    assert tapi.tree_ready(got)
+    with pytest.raises(ValueError, match="not divisible"):
         tapi.solve_batch(tapi.stack_instances([inst]), batch_shards=2,
                          device="cpu")
 

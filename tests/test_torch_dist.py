@@ -157,6 +157,46 @@ def test_collectives_without_a_group_are_identities():
         [1] * 5
 
 
+def _one_rank_env(monkeypatch, tmp_path):
+    monkeypatch.setenv("REPRO_RANK", "0")
+    monkeypatch.setenv("REPRO_WORLD", "1")
+    monkeypatch.setenv("REPRO_STORE", str(tmp_path / "store"))
+
+
+def test_process_group_frees_every_group(monkeypatch, tmp_path):
+    """A one-rank gloo group through ``process_group``: a collective over
+    the state group and an op under the roofline's work counter (its
+    first use imports ``torch._dynamo``, which imports
+    ``torch.distributed.nn.functional``, whose default arguments bind the
+    default group) leave no group object alive after the block."""
+    import torch.distributed as dist
+    from repro_torch.launch.ranks import process_group
+    from repro_torch.roofline.solver import WorkCounter
+    _one_rank_env(monkeypatch, tmp_path)
+    with process_group("gloo") as (rank, world):
+        assert (rank, world) == (0, 1)
+        got = td.all_gather(torch.arange(3), td.state_group(1))
+        with WorkCounter():
+            torch.zeros(3) + 1
+    assert not dist.is_initialized()
+    np.testing.assert_array_equal(got.numpy(), [[0, 1, 2]])
+
+
+def test_process_group_refuses_a_surviving_group(monkeypatch, tmp_path):
+    """A group handle kept past the block would keep the group's worker
+    threads running into interpreter exit: ``process_group`` raises
+    after destroying the group."""
+    import torch.distributed as dist
+    from repro_torch.launch.ranks import process_group
+    _one_rank_env(monkeypatch, tmp_path)
+    kept = []
+    with pytest.raises(RuntimeError, match="1 of 1 process group"):
+        with process_group("gloo"):
+            kept.append(dist.group.WORLD)
+    assert not dist.is_initialized()
+    kept.clear()
+
+
 def test_cc_and_contraction_set_sharded():
     """The sharded CC, matching/forest switch (plain and with
     contract_frac) against the reference's, exactly, and against the
@@ -300,9 +340,8 @@ WORKER = textwrap.dedent("""
     import os
     import numpy as np, torch
     torch.set_num_threads(1)
-    from repro_torch.launch.ranks import init_process_group
-    rank, world = init_process_group("gloo")
     import torch.distributed as dist
+    from repro_torch.launch.ranks import process_group
     from repro_torch.core import contraction as tc, dist as td
     from repro_torch.core import graph as tg
     from repro_torch.core.message_passing import \\
@@ -312,50 +351,62 @@ WORKER = textwrap.dedent("""
 """) + textwrap.dedent(inspect.getsource(_cases)) + textwrap.dedent("""
     C = _cases()
     out = {}
-    W = dist.group.WORLD
-    g = torch.arange(3, dtype=torch.int32) + 10 * rank
-    out["gather"] = td.all_gather(g, W).numpy()
-    out["gather_bool"] = td.all_gather(g %% 2 == 0, W).numpy()
-    out["min"] = td.all_min(g, W).numpy()
-    out["max"] = td.all_max(g.float(), W).numpy()
-    out["sum"] = td.all_sum_int(g.long(), W).numpy()
-    for S in (1, 2, 4):
-        grp = td.state_group(S)
-        if rank >= S:
-            continue
-        def rng_(t):
-            n = t.shape[0] // S
-            return t[rank * n:(rank + 1) * n]
-        inst = C["inst"]
-        loc = [rng_(t) for t in inst[:4]]
-        out[f"S{S}/blocked"] = td.blocked_sum(rng_(C["x"]), S, grp).numpy()
-        out[f"S{S}/gather"] = td.gather_edge_field(rng_(C["x"]), C["ids"],
-                                                   grp).numpy()
-        sel = tc.choose_contraction_set_sharded(
-            *loc, inst.node_valid, 3, 4, 0.1, 0.0, S, grp)
-        out[f"S{S}/choose"] = sel.numpy()
-        con = tc.contract_sharded(*loc, inst.node_valid, rng_(C["S"]), S,
-                                  grp)
-        for k, x in con._asdict().items():
-            if k != "csr":
-                out[f"S{S}/contract/{k}"] = x.numpy()
-        c_rep, lb = run_message_passing_sharded(
-            loc[2], loc[3], C["tri"], C["tri_valid"], 5, S, grp,
-            mp=mp_phase_ref)
-        out[f"S{S}/mp/c_rep"], out[f"S{S}/mp/lb"] = c_rep.numpy(), lb.numpy()
-        if S <= 2:
-            mixed = [rng_(t) for t in C["mixed"][:4]]
-            out[f"S{S}/mixed_c2"] = tc.contract_sharded(
-                *mixed, C["mixed"].node_valid, rng_(C["mixed_S"]), S,
-                grp).c2.numpy()
-    big = tg.random_instance(400, 0.05, seed=3, pad_edges=8192,
-                             pad_nodes=512, device="cpu")
-    parts = td.partition_instance(big, 8, 64, 1024)
-    keys = ("u", "v", "cost", "edge_valid", "node_valid", "boundary_cost")
-    res = td.make_dist_pd_round(W, mp_iters=3, max_neg=64)(
-        *(torch.from_numpy(parts[k]) for k in keys))
-    for i, x in enumerate(res):
-        out[f"dist_pd/{i}"] = x.numpy()
+
+
+    def work(rank):
+        W = dist.group.WORLD
+        g = torch.arange(3, dtype=torch.int32) + 10 * rank
+        out["gather"] = td.all_gather(g, W).numpy()
+        out["gather_bool"] = td.all_gather(g %% 2 == 0, W).numpy()
+        out["min"] = td.all_min(g, W).numpy()
+        out["max"] = td.all_max(g.float(), W).numpy()
+        out["sum"] = td.all_sum_int(g.long(), W).numpy()
+        for S in (1, 2, 4):
+            grp = td.state_group(S)
+            if rank >= S:
+                continue
+
+            def rng_(t):
+                n = t.shape[0] // S
+                return t[rank * n:(rank + 1) * n]
+            inst = C["inst"]
+            loc = [rng_(t) for t in inst[:4]]
+            out[f"S{S}/blocked"] = td.blocked_sum(rng_(C["x"]), S,
+                                                  grp).numpy()
+            out[f"S{S}/gather"] = td.gather_edge_field(rng_(C["x"]),
+                                                       C["ids"], grp).numpy()
+            sel = tc.choose_contraction_set_sharded(
+                *loc, inst.node_valid, 3, 4, 0.1, 0.0, S, grp)
+            out[f"S{S}/choose"] = sel.numpy()
+            con = tc.contract_sharded(*loc, inst.node_valid, rng_(C["S"]),
+                                      S, grp)
+            for k, x in con._asdict().items():
+                if k != "csr":
+                    out[f"S{S}/contract/{k}"] = x.numpy()
+            c_rep, lb = run_message_passing_sharded(
+                loc[2], loc[3], C["tri"], C["tri_valid"], 5, S, grp,
+                mp=mp_phase_ref)
+            out[f"S{S}/mp/c_rep"], out[f"S{S}/mp/lb"] = c_rep.numpy(), \\
+                lb.numpy()
+            if S <= 2:
+                mixed = [rng_(t) for t in C["mixed"][:4]]
+                out[f"S{S}/mixed_c2"] = tc.contract_sharded(
+                    *mixed, C["mixed"].node_valid, rng_(C["mixed_S"]), S,
+                    grp).c2.numpy()
+        big = tg.random_instance(400, 0.05, seed=3, pad_edges=8192,
+                                 pad_nodes=512, device="cpu")
+        parts = td.partition_instance(big, 8, 64, 1024)
+        keys = ("u", "v", "cost", "edge_valid", "node_valid",
+                "boundary_cost")
+        res = td.make_dist_pd_round(W, mp_iters=3, max_neg=64)(
+            *(torch.from_numpy(parts[k]) for k in keys))
+        for i, x in enumerate(res):
+            out[f"dist_pd/{i}"] = x.numpy()
+
+
+    with process_group("gloo") as (rank, world):
+        work(rank)
+    out["group_destroyed"] = np.array(not dist.is_initialized())
     np.savez(os.path.join(OUT, f"rank{rank}.npz"), **out)
 """)
 
@@ -370,9 +421,11 @@ def gloo_runs(tmp_path_factory):
 
 def test_gloo_collectives(gloo_runs):
     """all_gather in rank order (bool over the wire as uint8), exact
-    min/max, integer sums, over 4 ranks."""
+    min/max, integer sums, over 4 ranks; every rank destroyed its group
+    before it wrote its results and exited."""
     g = np.arange(3, dtype=np.int32) + 10 * np.arange(4)[:, None]
     for run in gloo_runs:
+        assert bool(run["group_destroyed"])
         np.testing.assert_array_equal(run["gather"], g)
         np.testing.assert_array_equal(run["gather_bool"], g % 2 == 0)
         np.testing.assert_array_equal(run["min"], g.min(0))

@@ -22,6 +22,7 @@ from torch.utils._python_dispatch import _disable_current_modes  # noqa: E402,E5
 from repro.configs import rama_multicut as jrama  # noqa: E402
 from repro.core import graph as jg  # noqa: E402
 from repro.roofline import analysis as janalysis  # noqa: E402
+from repro.roofline import solver as jsolver  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs import rama_multicut as trama  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
@@ -77,8 +78,41 @@ def test_profile_solve_round(impl):
 
 
 def test_profile_solve_round_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        profile_solve_round(_inst(), SolverConfig(state_shards=2))
+    """The sharded round's profile at S = 1 in process (no process group):
+    the reference's phases, record keys and top-level keys (all but
+    ``peak_temp_bytes``, which XLA's memory analysis gives and eager torch
+    does not); job = per-device = this rank's counts; no collective
+    bytes; the MP loop correction. It raises where the sharded solve
+    does: the dense path is refused with the solve's message."""
+    cfg = SolverConfig(state_shards=1, graph_impl="sparse",
+                       first_round_cycles45=False, max_neg=64, mp_iters=3)
+    prof = profile_solve_round(_inst(), cfg)
+    ref_rec = jsolver._sharded_phase_record(
+        dict(flops=1, bytes_accessed=1, collective_bytes=0,
+             peak_temp_bytes=0), 1.0, janalysis.HW, 1)
+    assert prof["state_shards"] == 1 and prof["rank"] == 0
+    assert {"impl", "hw", "mp_iters", "state_shards", "phases",
+            "round_wall_s", "round_roofline_s"} <= set(prof)
+    assert tuple(prof["phases"]) == PHASES
+    for name, rec in prof["phases"].items():
+        assert set(ref_rec) - {"peak_temp_bytes"} <= set(rec), name
+        assert rec["same_on_every_rank"] and rec["wall_s"] > 0
+        for k in ("flops", "bytes_accessed", "collective_bytes",
+                  "torch_ops", "kernel_flops", "kernel_bytes"):
+            assert rec[k] == rec[f"{k}_per_device"] == rec[f"rank_{k}"]
+        assert rec["collective_bytes"] == rec["collective_calls"] == 0
+        assert rec["bytes_accessed"] > 0 and rec["flops"] > 0
+        assert rec["roofline_s"] == step_time_estimate(rec["terms"])
+    mp = prof["phases"]["message_passing"]
+    loop = mp["loop"]
+    assert loop["iters"] == 3 and loop["flops_depth2"] > loop["flops_depth1"]
+    assert mp["flops"] == loop_corrected(loop["flops_depth1"],
+                                         loop["flops_depth2"], 3)
+    assert prof["round_wall_s"] == pytest.approx(
+        sum(p["wall_s"] for p in prof["phases"].values()))
+    with pytest.raises(ValueError, match="CSR data path only"):
+        profile_solve_round(_inst(), dataclasses.replace(
+            cfg, graph_impl="dense"))
 
 
 def test_work_counter_on_known_ops():

@@ -52,6 +52,7 @@ SHARDED = dataclasses.replace(BASE, state_shards=1)
 INT_ROWS = ("rounds", "n_cycles", "n_contracted", "n_clusters",
             "shard_edges", "shard_topk", "shard_halo")
 STREAM_CHUNK = 23
+PROF = dict(max_neg=64, mp_iters=3)      # the profiled round's config
 
 
 def _inst(name):
@@ -187,11 +188,13 @@ WORKER = textwrap.dedent("""
     import dataclasses, os
     import numpy as np, torch
     torch.set_num_threads(1)
-    from repro_torch.launch.ranks import init_process_group
-    rank, world = init_process_group("gloo")
+    import torch.distributed as dist
+    from repro_torch.launch.ranks import process_group
     from repro_torch import api
+    from repro_torch.core import dist as td
     from repro_torch.core import graph as tg
     from repro_torch.core.solver import SolverConfig
+    from repro_torch.roofline import profile_solve_round
     E, N, CHUNK, OUT = %(E)d, %(N)d, %(chunk)d, %(out)r
     FAMILIES = {
         "random": tg.random_instance(60, 0.15, seed=3, pad_edges=E,
@@ -208,30 +211,64 @@ WORKER = textwrap.dedent("""
         for k, x in tree._asdict().items():
             out[prefix + "/" + k] = x.numpy()
 
-    for name, inst in FAMILIES.items():
-        for S in (1, 2, 4):
-            cfg = dataclasses.replace(base, state_shards=S)
-            keep(f"{name}/S{S}", api.solve(inst, config=cfg, device="cpu"))
-            r, tr = api.solve(inst, config=cfg, trace=True, device="cpu")
-            keep(f"{name}/S{S}/traced", r)
-            keep(f"{name}/S{S}/trace", tr)
-    u, v, c = tg.to_host_edges(tg.grid_instance(8, 8, seed=1,
-                                                device="cpu"))
-    Es = tg.round_up_edges(len(u), state_shards=4)
 
-    def chunks():
-        for i in range(0, len(u), CHUNK):
-            yield u[i:i + CHUNK], v[i:i + CHUNK], c[i:i + CHUNK]
+    def solves():
+        for name, inst in FAMILIES.items():
+            for S in (1, 2, 4):
+                cfg = dataclasses.replace(base, state_shards=S)
+                keep(f"{name}/S{S}", api.solve(inst, config=cfg,
+                                               device="cpu"))
+                r, tr = api.solve(inst, config=cfg, trace=True,
+                                  device="cpu")
+                keep(f"{name}/S{S}/traced", r)
+                keep(f"{name}/S{S}/trace", tr)
 
-    part, stats = tg.make_instance_streamed(chunks(), N, Es, state_shards=4,
-                                            device="cpu")
-    out["streamed/kind"] = np.array(type(part).__name__)
-    keep("streamed/range", part)
-    out["streamed/stats"] = np.array(stats)
-    cfg = dataclasses.replace(base, state_shards=4)
-    keep("streamed/result", api.solve(part, config=cfg, device="cpu"))
-    full = tg.make_instance(u, v, c, N, pad_edges=Es, device="cpu")
-    keep("streamed/full", api.solve(full, config=cfg, device="cpu"))
+
+    def streamed():
+        u, v, c = tg.to_host_edges(tg.grid_instance(8, 8, seed=1,
+                                                    device="cpu"))
+        Es = tg.round_up_edges(len(u), state_shards=4)
+
+        def chunks():
+            for i in range(0, len(u), CHUNK):
+                yield u[i:i + CHUNK], v[i:i + CHUNK], c[i:i + CHUNK]
+
+        part, stats = tg.make_instance_streamed(chunks(), N, Es,
+                                                state_shards=4,
+                                                device="cpu")
+        out["streamed/kind"] = np.array(type(part).__name__)
+        keep("streamed/range", part)
+        out["streamed/stats"] = np.array(stats)
+        cfg = dataclasses.replace(base, state_shards=4)
+        keep("streamed/result", api.solve(part, config=cfg, device="cpu"))
+        full = tg.make_instance(u, v, c, N, pad_edges=Es, device="cpu")
+        keep("streamed/full", api.solve(full, config=cfg, device="cpu"))
+
+
+    def profiles(rank):
+        for S in (2, 4):
+            grp = td.state_group(S)
+            if rank < S:
+                with td.count_collective_bytes() as sent:
+                    td.all_gather(torch.zeros(5, dtype=torch.int64), grp)
+                out[f"prof/S{S}/known"] = np.array([sent["bytes"],
+                                                    sent["calls"]])
+            cfg = dataclasses.replace(base, state_shards=S, **%(prof)r)
+            prof = profile_solve_round(FAMILIES["grid"], cfg)
+            out[f"prof/S{S}/none"] = np.array(prof is None)
+            if prof is None:
+                continue
+            for ph, rec in prof["phases"].items():
+                for k, x in rec.items():
+                    if isinstance(x, (bool, int, float)):
+                        out[f"prof/S{S}/{ph}/{k}"] = np.array(x)
+
+
+    with process_group("gloo") as (rank, world):
+        solves()
+        streamed()
+        profiles(rank)
+    out["group_destroyed"] = np.array(not dist.is_initialized())
     np.savez(os.path.join(OUT, f"rank{rank}.npz"), **out)
 """)
 
@@ -240,7 +277,7 @@ WORKER = textwrap.dedent("""
 def gloo_runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("gloo4")
     code = WORKER % dict(E=PAD_EDGES, N=PAD_NODES, chunk=STREAM_CHUNK,
-                         out=str(d))
+                         out=str(d), prof=PROF)
     spawn(code, world=4, store=d / "store", timeout=300)
     return [dict(np.load(d / f"rank{r}.npz")) for r in range(4)]
 
@@ -304,3 +341,56 @@ def test_gloo_streamed_ingest_by_range(gloo_runs):
             np.testing.assert_array_equal(run[f"streamed/result/{k}"],
                                           run[f"streamed/full/{k}"],
                                           err_msg=k)
+
+
+def test_gloo_groups_destroyed(gloo_runs):
+    """Every rank left ``process_group`` with its group (and the state
+    subgroups made from it) destroyed, before it wrote its results."""
+    for run in gloo_runs:
+        assert bool(run["group_destroyed"])
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_gloo_sharded_profile(S, gloo_runs):
+    """``profile_solve_round`` of the state-sharded round over S gloo
+    ranks: ranks past S get None; in each phase the job totals are each
+    rank's count summed over the group and the per-device numbers its
+    maximum, the same on every rank, and where every rank counted the
+    same, job = per-device × S (the reference's identity); the wall is
+    the slowest rank's. Collective bytes: one known all_gather of five
+    int64 counts 40 bytes on each rank, and MP's equal what its two
+    collectives send: the halo exchange of the 3T slot costs and
+    blocked_sum's 16/S partials, all float32."""
+    from repro_torch.core.graph import build_csr
+    from repro_torch.core.sharded import _separate_triangles_state_sharded
+    from repro_torch.roofline import PHASES
+    runs = gloo_runs[:S]
+    assert not any(bool(r[f"prof/S{S}/none"]) for r in runs)
+    assert all(bool(r[f"prof/S{S}/none"]) for r in gloo_runs[S:])
+    for r in runs:
+        assert r[f"prof/S{S}/known"].tolist() == [40, 1]
+    keys = ("flops", "bytes_accessed", "collective_bytes", "torch_ops",
+            "kernel_flops", "kernel_bytes")
+    for ph in PHASES:
+        def get(r, k):
+            return r[f"prof/S{S}/{ph}/{k}"].item()
+        for k in keys:
+            mine = [get(r, f"rank_{k}") for r in runs]
+            for r in runs:
+                assert get(r, k) == sum(mine), (ph, k)
+                assert get(r, f"{k}_per_device") == max(mine), (ph, k)
+                if get(r, "same_on_every_rank"):
+                    assert get(r, k) == S * get(r, f"{k}_per_device")
+        assert len({get(r, "wall_s") for r in runs}) == 1
+        assert all(get(r, "wall_s") >= get(r, "rank_wall_s") for r in runs)
+        assert get(runs[0], "collective_bytes_per_device") > 0, ph
+    inst = _inst("grid")[1]
+    cfg = dataclasses.replace(BASE, state_shards=1, **PROF)
+    csr = build_csr(inst.u, inst.v, inst.edge_valid, inst.num_nodes)
+    tri, _ = _separate_triangles_state_sharded(
+        inst.u, inst.v, inst.cost, inst.edge_valid, csr, inst.num_nodes,
+        cfg, 1, None, None)
+    want = 4 * 3 * tri.shape[0] + 4 * (16 // S)
+    for r in runs:
+        assert r[f"prof/S{S}/message_passing/rank_collective_bytes"] \
+            .item() == want

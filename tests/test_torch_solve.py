@@ -85,10 +85,11 @@ def test_backends_and_facade_agree_on_cpu():
 def test_api_raises_for_unported_parts():
     """What ROADMAP Queue 1 items 7, 9 and 13 ported now runs: every mode
     on the dense path (auto below 257 padded nodes), mode p on the sparse
-    path, the traced solve, and ``state_shards``, which without a process
-    group clamps to one shard and equals the replicated sparse solve.
-    What is still unported (separation sharding) raises, naming its
-    item."""
+    path, the traced solve, ``state_shards``, which without a process
+    group clamps to one shard and equals the replicated sparse solve, and
+    ``separation_shards``, which without a card clamps to one shard and
+    equals the unsharded sparse solve. What the API refuses still
+    raises."""
     inst = tg.grid_instance(6, 6, seed=0, device="cpu")   # 36 nodes: dense
     for mode in ("p", "pd", "pd+", "d"):
         res = tapi.solve(inst, mode=mode, device="cpu")
@@ -108,14 +109,17 @@ def test_api_raises_for_unported_parts():
                      device="cpu")
     for k in ("labels", "rounds", "n_contracted", "n_clusters"):
         assert torch.equal(getattr(res, k), getattr(ref, k)), k
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tapi.solve(inst, config=tapi.SolverConfig(separation_shards=2,
-                                                  graph_impl="sparse"),
-                   device="cpu")
+    res = tapi.solve(inst, config=tapi.SolverConfig(separation_shards=2,
+                                                    graph_impl="sparse"),
+                     device="cpu")
+    ref = tapi.solve(inst, graph_impl="sparse", device="cpu")
+    for k in ("labels", "rounds", "objective", "lower_bound"):
+        assert torch.equal(getattr(res, k), getattr(ref, k)), k
     with pytest.raises(ValueError, match="unknown backend"):
         tapi.solve(inst, backend="pallas", device="cpu")
     assert set(tapi.list_presets()) >= {"paper-pd", "paper-pd+", "pd-opt",
-                                        "pd-sparse", "pd-chunked"}
+                                        "pd-sparse", "pd-chunked",
+                                        "pd-sharded"}
     assert tapi.SolverConfig().cache_key() == \
         japi.SolverConfig().cache_key()
     if not torch.cuda.is_available():
@@ -128,8 +132,9 @@ def test_port_imports_no_jax():
     and the solve trace, the batch and registry entry points, the
     baselines, the roofline profile, the multicut arch config, the
     collectives, the sharded solve and the local rank launcher
-    included), and chip_smoke.py's own imports, load no jax and no module
-    of the JAX package."""
+    included, and the modules that shard separation, batches and the
+    roofline profile), and chip_smoke.py's own imports, load no jax and no
+    module of the JAX package."""
     code = (
         "import sys, runpy\n"
         "import repro_torch.api, repro_torch.convert\n"
@@ -143,11 +148,14 @@ def test_port_imports_no_jax():
         "from repro_torch.api import (solve_batch, solve_delta,\n"
         "    solve_with_state, stack_instances, unstack_results, tree_ready,\n"
         "    compiled_solve, compiled_delta, trace_count, cache_info)\n"
-        "from repro_torch.core.dist import resolve_batch_shards\n"
+        "from repro_torch.core.dist import (resolve_batch_shards,\n"
+        "    resolve_separation_shards, shard_devices)\n"
         "import repro_torch.obs.trace, repro_torch.core.baselines\n"
         "import repro_torch.roofline, repro_torch.configs.rama_multicut\n"
         "import repro_torch.core.dist, repro_torch.core.sharded\n"
-        "import repro_torch.launch.ranks\n"
+        "import repro_torch.launch.ranks, repro_torch.core.cycles\n"
+        "import repro_torch.core.solver, repro_torch.roofline.solver\n"
+        "import repro_torch.roofline.analysis, repro_torch.serve.engine\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -175,6 +183,13 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 8" in out.stdout and "streamed ingest" in out.stdout
     assert "phase 9" in out.stdout and "bit-identical to S = 1" in \
         out.stdout and "block decomposition" in out.stdout
+    assert "phase 10" in out.stdout and "pd-sharded S = 4: bit-equal" in \
+        out.stdout and "batch_shards = 4: bit-identical" in out.stdout
+    assert "router with batch_shards=2" in out.stdout and \
+        "S = 2 rank 1 contraction" in out.stdout
+    assert "pd-sharded at S = 1, 2, 4: triangle_mp T" in out.stdout and \
+        "the batch_shards=2 route: triangle_mp T" in out.stdout and \
+        "each equal to its plain version" in out.stdout
     assert "traced pd+ sparse: bit-equal" in out.stdout
     assert "labels equal True" in out.stdout
     if not torch.cuda.is_available():
