@@ -184,6 +184,30 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    one-rank NCCL group (per phase wall, bytes, flops, collective bytes,
    share of the bound), then phase 9 (b)'s two S = 2 profiles with each
    rank's collective bytes.
+11. MoE serving and the LM train step, at full width, depth cut to fit
+   one card. (a) llama4-scout-17b-a16e at 4 of 48 layers (16 experts
+   top-1, ~20.8 GB of bf16 weights), then grok-1-314b at 2 of 64 (8
+   experts top-2, ~22.9 GB), the first freed: prefill (1, 8192) through
+   the flash kernel (counted: L launches at (1, Hq, 8, 8192, 128)) and
+   through plain attention, phase 5's gates on the logits; per layer the
+   routing (tokens per expert, dropped choices, exact gate ties), equal
+   to the CPU's routing of the card's own gates, and between the two
+   routes equal wherever the router logits are; then decode at context
+   8000 of an 8192-slot cache from the first position there that every
+   layer kept: its token equals the prefill's argmax, and 4 more steps
+   timed. (b) gemma2-9b at 2 of 42 layers (one local/global pair; the
+   full depth's f32 masters, gradients and AdamW moments need ~162 GB):
+   five registry train steps on ``lm_batch`` (1, 8192) with its
+   optimizer unwarmed, each launching the flash kernel 2 L times
+   (forward and the remat recompute); step 1's loss within 1e-2 of the
+   plain route's, each attention layer's q, k, v gradients bit-equal to
+   the plain route's on the same inputs and cotangent; batch 0's loss
+   lower after the five steps; a checkpoint after step 3 (host copy,
+   then written on a thread), restored, and steps 4-5 again: the same
+   losses and params bit for bit. (c) ``launch/train.py`` and
+   ``launch/serve.py`` (both MoE archs) on the card at ``--reduce 16``.
+   Then the flash kernel against its plain version at the two MoE
+   prefill shapes.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -197,7 +221,8 @@ dense-path grid, phase 7's tiles at 12..16 squared with 16×16 and 17×17
 grid with patches of 40, 5 and 5, phase 8 on 20×20 grids with 64-edge
 ingest chunks and small arch cells, phase 9 on a one-rank gloo group
 with 20×20 and 12×12 grids and a small ``dist_pd`` cell, phase 10 on the
-20×20 grid and 16×16 batches), with each
+20×20 grid and 16×16 batches, phase 11 on width-64 copies of its
+archs at S = 128 (MoE) and 48 (training)), with each
 kernel wrapper running its plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
@@ -2921,6 +2946,524 @@ def phase_shards(main: dict, main_cases: dict, sharded: dict, gen,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: MoE serving (llama4-scout, grok-1) and the LM train step
+# ---------------------------------------------------------------------------
+
+# full width; depth cut to what one card's 80 GB holds beside the run
+MOE_DEPTH = {"llama4-scout-17b-a16e": 4, "grok-1-314b": 2}
+# (prefill S, decode context P0, decode steps after the first)
+MOE_RUN = {"card": (8192, 8000, 4), "rehearse": (128, 100, 3)}
+# (depth, S, steps, checkpoint after step): gemma2-9b, one local/global
+# pair; S > its 4096 window, so the local layer's window masks
+TRAIN_RUN = {"card": (2, 8192, 5, 3), "rehearse": (2, 48, 5, 3)}
+# the registry's optimizer without its 100-step warm-up (which would hold
+# the rate near 1e-5 for five steps)
+TRAIN_OPT = dict(warmup_steps=0, schedule="constant")
+# step-1 loss, kernel route vs plain: a mean of S token losses, each moved
+# by the kernel's bf16 P (phase 5's logits differ by <= 0.1 of max |ref|)
+TRAIN_LOSS_REL_TOL = 1e-2
+
+
+def moe_arch(aid: str, rehearse: bool):
+    """The MoE arch at full width and MOE_DEPTH layers on the card; on the
+    CPU a width-64 copy with the published expert count and top-k."""
+    arch = get_arch(aid)
+    cfg = dataclasses.replace(arch.cfg, n_layers=MOE_DEPTH[aid])
+    if rehearse:
+        cfg = dataclasses.replace(cfg, d_model=64, n_heads=4, n_kv_heads=2,
+                                  head_dim=16, d_ff=128, vocab=256)
+    return dataclasses.replace(arch, cfg=cfg)
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Record, per MoE layer call made through ``tfm.moe_route`` while the
+    block runs, its router input x, the router and its Routing."""
+    fn = tfm.moe_route
+    calls = []
+
+    def recorded(cfg, router, x):
+        r = fn(cfg, router, x)
+        calls.append(dict(x=x.detach(), router=router, routing=r))
+        return r
+    tfm.moe_route = recorded
+    try:
+        yield calls
+    finally:
+        tfm.moe_route = fn
+
+
+def routing_record(cfg, calls: list) -> list:
+    """Per layer: tokens kept by each expert and dropped (token, choice)
+    pairs; the routing integers recomputed on the CPU from the card's own
+    gates must equal the card's (no float atomic or sort order decides
+    them)."""
+    out = []
+    for i, c in enumerate(calls):
+        r = c["routing"]
+        gates = tfm.moe_gates(c["router"], c["x"])
+        cpu = tfm.route_from_gates(cfg, gates.cpu())
+        same = all(torch.equal(getattr(r, f).cpu(), getattr(cpu, f))
+                   for f in ("top_e", "pos", "keep"))
+        check(same, f"{cfg.name} layer {i}: card routing != CPU routing "
+              f"of the same gates")
+        top = gates.topk(2, dim=-1).values
+        out.append(dict(
+            capacity=r.capacity,
+            tokens_per_expert=torch.bincount(
+                r.top_e[r.keep], minlength=cfg.n_experts).tolist(),
+            dropped=int((~r.keep).sum()),
+            gate_ties=int((top[:, 0] == top[:, 1]).sum()),
+            card_equals_cpu=same))
+    return out
+
+
+def compare_routes(cfg, kern: list, plain: list):
+    """The two attention routes' routing, layer by layer: tokens whose
+    router logits came out bitwise equal must get the same experts;
+    positions and keeps must be equal up to the first token whose experts
+    differ (a position counts every earlier choice of its expert). Counts
+    what differs. Also returns the (S,) mask of the tokens that every
+    layer gave the same experts and the same keep in both routes."""
+    rows = []
+    same_route = None
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        ra, rb = a["routing"], b["routing"]
+        la = a["x"] @ a["router"].to(a["x"].dtype)
+        lb = b["x"] @ b["router"].to(b["x"].dtype)
+        same_logits = (la == lb).all(-1)
+        same_e = (ra.top_e == rb.top_e).all(-1)
+        check(bool(same_e[same_logits].all()),
+              f"{cfg.name} layer {i}: equal router logits, other experts")
+        first = int(same_e.logical_not().nonzero()[0, 0]) \
+            if not bool(same_e.all()) else same_e.numel()
+        check(torch.equal(ra.pos[:first], rb.pos[:first])
+              and torch.equal(ra.keep[:first], rb.keep[:first]),
+              f"{cfg.name} layer {i}: positions differ before the first "
+              f"differing choice")
+        same = same_e & (ra.keep == rb.keep).all(-1)
+        same_route = same if same_route is None else same_route & same
+        rows.append(dict(tokens_equal_logits=int(same_logits.sum()),
+                         tokens_other_experts=int((~same_e).sum()),
+                         tokens_other_keep=int(
+                             (ra.keep != rb.keep).any(-1).sum()),
+                         first_differing_token=first,
+                         all_equal=bool(same_e.all()) and torch.equal(
+                             ra.pos, rb.pos) and torch.equal(ra.keep,
+                                                             rb.keep)))
+    return dict(layers=rows, all_equal=all(r["all_equal"] for r in rows),
+                tokens_same_route=int(same_route.sum())), same_route
+
+
+def logits_agree_where(got, ref, mask, what: str) -> dict:
+    """``logits_agree`` over the positions of ``mask`` (S,), with the
+    scale of every position's |ref|; greedy agreement over all positions
+    (gated at GREEDY_AGREE_MIN) and over the masked ones."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    err = (got - ref).abs_().amax(-1)[0]                     # (S,)
+    scale = float(ref.abs().max())
+    agree = (got.argmax(-1) == ref.argmax(-1))[0]
+    out = dict(max_abs_err=float(err[mask].max()), max_abs_ref=scale,
+               rel_err=float(err[mask].max()) / scale,
+               greedy_agreement=float(agree[mask].float().mean()),
+               positions=int(mask.sum()),
+               other_positions=int((~mask).sum()),
+               other_max_abs_err=float(err[~mask].max())
+               if bool((~mask).any()) else None,
+               greedy_agreement_all=float(agree.float().mean()))
+    check(out["rel_err"] <= LOGITS_REL_TOL,
+          f"{what}: max |diff| {out['max_abs_err']} > {LOGITS_REL_TOL} x "
+          f"max |ref| {scale} at the positions routed alike ({out})")
+    check(out["greedy_agreement_all"] >= GREEDY_AGREE_MIN,
+          f"{what}: greedy agreement {out['greedy_agreement_all']} < "
+          f"{GREEDY_AGREE_MIN} ({out})")
+    check(out["positions"] >= GREEDY_AGREE_MIN * mask.numel(),
+          f"{what}: only {out['positions']} of {mask.numel()} positions "
+          f"routed alike in every layer")
+    return out
+
+
+def phase11_moe(aid: str, rehearse: bool, gen) -> dict:
+    """One MoE arch: prefill (1, S) through the kernel (counted) and
+    through plain attention, phase 5's gates on the logits, the routing
+    of both; then decode steps at context P0 of an S-slot cache."""
+    arch = moe_arch(aid, rehearse)
+    cfg = arch.cfg
+    S, P0, n_steps = MOE_RUN["rehearse" if rehearse else "card"]
+    sync()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, gen, DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [params[k] for k in params if k != "layers"]
+                       + list(params["layers"].values()))
+    log(f"  {cfg.name}: {cfg.n_layers} of {get_arch(aid).cfg.n_layers} "
+        f"layers (depth cut to fit one card), d {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, "
+        f"{weight_bytes / 1e9:.2f} GB of bf16 weights, drawn in "
+        f"{init_s:.2f} s")
+    tokens = torch.randint(0, cfg.vocab, (1, S), device=DEV, generator=gen)
+    prefill = arch.step_fn(arch.shapes["prefill_32k"])
+    plain = arch.step_fn(arch.shapes["prefill_32k"], backend="reference")
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    with record_routing() as kern_calls:
+        logits = prefill(params, tokens)            # the path, counted
+    sync()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    shapes = dict(flash_ops.shapes)
+    peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
+    check(tuple(logits.shape) == (1, S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill: bad logits")
+    want = {(1, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd, None): cfg.n_layers}
+    if DEV.type == "cuda":
+        check(launches == {"triangle_mp": 0, "cycle_intersect": 0,
+                           "flash_attention": cfg.n_layers,
+                           "contract_matmul": 0},
+              f"{cfg.name} prefill launched {launches}, want "
+              f"{cfg.n_layers} flash")
+        check(shapes == want, f"{cfg.name} prefill gave the kernel "
+              f"{shapes}, want {want}")
+    sync()
+    t0 = time.perf_counter()
+    prefill(params, tokens)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    with record_routing() as plain_calls:
+        ref = plain(params, tokens)
+    sync()
+    plain_s = time.perf_counter() - t0
+    routing = routing_record(cfg, kern_calls)
+    routes, same_route = compare_routes(cfg, kern_calls, plain_calls)
+    for i, r in enumerate(routing):
+        log(f"  {cfg.name} layer {i} routing: capacity {r['capacity']}, "
+            f"tokens per expert {r['tokens_per_expert']}, dropped "
+            f"{r['dropped']}, exact top-2 gate ties {r['gate_ties']}, card "
+            f"= CPU on the same gates; vs the plain route "
+            f"{routes['layers'][i]}")
+    # a token routed otherwise in some layer runs other experts: its
+    # logits are another function, not the kernel's rounding of this one
+    vs_plain = logits_agree_where(logits, ref, same_route,
+                                  f"{cfg.name} prefill kernel vs plain")
+    # decode where the step is the same function as the prefill's row:
+    # a token every layer of the prefill kept (a decode step routes its
+    # one token with room to spare), and that the decode step routes to
+    # the prefill's experts in every layer (its hidden state is the
+    # prefill's up to rounding, so a near-tie of gates can go the other
+    # way); candidates from P0 on, then before it, each on a copy of the
+    # filled cache
+    kept = torch.stack([c["routing"].keep.all(-1) for c in kern_calls]
+                       ).all(0)
+    prefill_e = [c["routing"].top_e for c in kern_calls]
+    want_rows = logits
+    del ref, kern_calls, plain_calls
+    step = arch.step_fn(arch.shapes["decode_32k"])
+    filled = tfm.init_kv_cache(cfg, 1, S, DEV)
+    fill_cache(cfg, params, tokens, filled, "cuda")  # routed as the prefill
+    order = list(range(P0, S - n_steps - 1)) + list(range(P0 - 1, 0, -1))
+    tried = []
+    for at in (p for p in order if bool(kept[p])):
+        cache = {k: c.clone() for k, c in filled.items()}
+        with record_routing() as dec_calls:
+            dec, cache = step(params, cache, tokens[:, at], at)
+        same = all(torch.equal(d["routing"].top_e[0], e[at])
+                   for d, e in zip(dec_calls, prefill_e))
+        del dec_calls
+        if same:
+            break
+        tried.append(at)
+        check(len(tried) < 16, f"{cfg.name}: 16 decode positions routed "
+              f"otherwise than the prefill: {tried}")
+    want_row = want_rows[:, at].clone()
+    del want_rows, logits, filled
+    vs_prefill = logits_agree(dec, want_row, f"{cfg.name} decode at "
+                              f"context {at} vs prefill")
+    vs_prefill["argmax_equal"] = bool(torch.equal(dec.argmax(-1),
+                                                  want_row.argmax(-1)))
+    vs_prefill["positions_routed_otherwise"] = tried
+    check(vs_prefill["argmax_equal"],
+          f"{cfg.name}: first decoded token {int(dec.argmax())} != the "
+          f"prefill's argmax {int(want_row.argmax())} at {at}")
+    sync()
+    t0 = time.perf_counter()
+    for t in range(at + 1, at + 1 + n_steps):
+        dec, cache = step(params, cache, tokens[:, t], t)
+    sync()
+    decode_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(dec).all()), f"{cfg.name} decode: non-finite")
+    out = dict(config=cfg.name, n_layers=cfg.n_layers,
+               published_layers=get_arch(aid).cfg.n_layers,
+               d_model=cfg.d_model, n_experts=cfg.n_experts,
+               top_k=cfg.top_k, params=cfg.params_count,
+               weight_bytes=weight_bytes, init_s=init_s, prefill_tokens=S,
+               prefill_first_s=first_s, prefill_s=prefill_s,
+               prefill_tokens_per_s=S / prefill_s, plain_prefill_s=plain_s,
+               launches=launches,
+               kernel_shapes={str(k): n for k, n in shapes.items()},
+               peak_bytes=peak, vs_plain=vs_plain, routing=routing,
+               routes=routes, decode_context=at, vs_prefill=vs_prefill,
+               decode_steps=n_steps, decode_s=decode_s,
+               decode_steps_per_s=n_steps / decode_s)
+    log(f"  {cfg.name} prefill (1, {S}): {prefill_s:.3f} s "
+        f"({S / prefill_s:.0f} tokens/s; first call {first_s:.3f} s), "
+        f"plain attention {plain_s:.3f} s; launches {launches}, shapes "
+        f"{out['kernel_shapes']}; peak {peak / 2**30:.2f} GiB; kernel vs "
+        f"plain {vs_plain} [{CARD_NAME}]")
+    log(f"  {cfg.name} decode at context {at} of {S} slots: vs prefill "
+        f"{vs_prefill}; {n_steps} more steps {out['decode_steps_per_s']:.2f}"
+        f" steps/s (batch 1) [{CARD_NAME}]")
+    return out
+
+
+def attention_taps(n: int):
+    """Record the first ``n`` calls of ``tfm.flash_attention_trainable``
+    (a step's forward, before its backward recomputes them): q, k, v, the
+    mask options, and by hooks the output's cotangent and q, k and v's
+    gradients as the step's backward computes them."""
+    fn = tfm.flash_attention_trainable
+    taps = []
+
+    def tapped(q, k, v, **kw):
+        out = fn(q, k, v, **kw)
+        if len(taps) < n:
+            rec = dict(q=q.detach(), k=k.detach(), v=v.detach(),
+                       kw={k_: w for k_, w in kw.items() if k_ != "backend"})
+            for name, t in (("dO", out), ("dq", q), ("dk", k), ("dv", v)):
+                t.register_hook(lambda g, name=name, rec=rec:
+                                rec.__setitem__(name, g))
+            taps.append(rec)
+        return out
+    return fn, tapped, taps
+
+
+def phase11_train(rehearse: bool, gen) -> dict:
+    """gemma2-9b at full width and one local/global pair: five registry
+    train steps on ``lm_batch`` through the kernel route (flash launches
+    counted each step: 2 L under remat), step 1's loss against the plain
+    route's and each attention layer's q, k, v gradients against the
+    plain route's on the same inputs (bit for bit); a checkpoint after
+    step 3, restored, and steps 4-5 again: the same bits."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import (
+        OptimizerConfig, OptState, init_opt_state,
+    )
+    from repro_torch.tree import tree_leaves
+    depth, S, n_steps, save_at = TRAIN_RUN["rehearse" if rehearse
+                                           else "card"]
+    arch = lm_config(rehearse)
+    cfg = dataclasses.replace(arch.cfg, n_layers=depth)
+    arch = dataclasses.replace(arch, cfg=cfg, opt=dataclasses.replace(
+        arch.opt, **TRAIN_OPT))
+    shape = arch.shapes["train_4k"]
+    step_fn = arch.step_fn(shape)
+    sync()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, gen, DEV, masters=True)
+    opt = init_opt_state(params, state_dtype=arch.opt_state_dtype)
+    sync()
+    init_s = time.perf_counter() - t0
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(params) + tree_leaves(opt))
+    log(f"  {cfg.name}: {depth} of 42 layers (depth cut: 42 layers' f32 "
+        f"masters, gradients and AdamW moments need ~162 GB), "
+        f"{cfg.params_count} params, {state_bytes / 1e9:.2f} GB of masters "
+        f"and moments, drawn in {init_s:.2f} s; lr {arch.opt.lr} "
+        f"constant, batch (1, {S})")
+
+    def batch(s):
+        return lm_batch(s, 1, S + 1, cfg.vocab, seed=0, device=DEV)
+
+    b0 = batch(0)
+    with torch.no_grad():
+        plain_loss = float(tfm.loss_fn(cfg, params, b0["tokens"],
+                                       b0["targets"], backend="reference"))
+    ckpt_dir = ROOT / "build" / "phase11_checkpoint"
+    losses, walls, launches, pending = [], [], [], None
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for s in range(n_steps):
+        b = batch(s)
+        orig = tapped = None
+        if s == 0:
+            orig, tapped, taps = attention_taps(depth)
+            tfm.flash_attention_trainable = tapped
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        try:
+            params, opt, m = step_fn(params, opt, b["tokens"], b["targets"])
+            sync()
+        finally:
+            if orig is not None:
+                tfm.flash_attention_trainable = orig
+        walls.append(time.perf_counter() - t0)
+        launches.append(all_launches())
+        losses.append(float(m["loss"]))
+        if s + 1 == save_at:
+            pending = ckpt.save_checkpoint_async(
+                str(ckpt_dir), save_at, {"params": params, "opt": opt},
+                keep=1)
+            saved_s = time.perf_counter() - t0 - walls[-1]
+    peak = torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
+    t0 = time.perf_counter()
+    pending.join()
+    join_s = time.perf_counter() - t0
+    want_flash = 2 * depth if DEV.type == "cuda" else 0
+    for s, n in enumerate(launches):
+        check(n == {"triangle_mp": 0, "cycle_intersect": 0,
+                    "flash_attention": want_flash, "contract_matmul": 0},
+              f"train step {s + 1} launched {n}, want {want_flash} flash "
+              f"(2 L: forward and the remat recompute)")
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(rel <= TRAIN_LOSS_REL_TOL,
+          f"step-1 loss kernel route {losses[0]} vs plain {plain_loss}")
+    # each attention layer of step 1: the plain route's gradients on the
+    # same q, k, v and cotangent equal the kernel route's, bit for bit
+    check(len(taps) == depth and all("dq" in t for t in taps),
+          f"step 1 tapped {len(taps)} attention layers")
+    grads_equal = []
+    for i, t in enumerate(taps):
+        leaves = [t[n].clone().requires_grad_() for n in ("q", "k", "v")]
+        out = flash_ops.flash_attention_trainable(
+            *leaves, backend="reference", **t["kw"])
+        ref = torch.autograd.grad(out, leaves, t["dO"])
+        same = [torch.equal(a, t[n]) for a, n in zip(ref, ("dq", "dk",
+                                                           "dv"))]
+        check(all(same), f"train step 1 layer {i}: kernel-route q/k/v "
+              f"gradients != plain route's {same}")
+        grads_equal.append(dict(layer=i, window=t["kw"]["window"],
+                                dq_dk_dv_bitwise_equal=same))
+    del taps
+    # the loss falls: batch 0's loss after the five steps against step 1's
+    with torch.no_grad():
+        after = float(tfm.loss_fn(cfg, params, b0["tokens"], b0["targets"]))
+    check(after < losses[0], f"batch 0's loss {losses[0]} -> {after} after "
+          f"{n_steps} steps: did not fall")
+    # resume: restore step 3's checkpoint and run steps 4-5 again
+    final = params
+    step_count = int(opt.step)
+    del opt
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmpl = {"params": final, "opt": OptState(
+        step=torch.zeros((), dtype=torch.int32, device=DEV), mu=final,
+        nu=final)}
+    loaded, info = ckpt.load_checkpoint(str(ckpt_dir), tmpl)
+    state = ckpt.restore(loaded, tmpl)
+    del loaded
+    sync()
+    load_s = time.perf_counter() - t0
+    params, opt = state["params"], state["opt"]
+    del state
+    check(info["step"] == save_at and int(opt.step) == save_at,
+          f"restored step {info['step']}")
+    resumed = []
+    for s in range(save_at, n_steps):
+        b = batch(s)
+        params, opt, m = step_fn(params, opt, b["tokens"], b["targets"])
+        resumed.append(float(m["loss"]))
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(params), tree_leaves(final)))
+    check(resumed == losses[save_at:] and same_params
+          and int(opt.step) == step_count,
+          f"resume from step {save_at}: losses {resumed} vs "
+          f"{losses[save_at:]}, params equal {same_params}")
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+    for f in ckpt_dir.iterdir():
+        f.unlink()
+    ckpt_dir.rmdir()
+    del params, opt, final
+    out = dict(config=cfg.name, n_layers=depth, params=cfg.params_count,
+               state_bytes=state_bytes, init_s=init_s, tokens=S,
+               opt=dataclasses.asdict(arch.opt), losses=losses,
+               loss_step5_below_step1=losses[-1] < losses[0],
+               batch0_loss_after=after, plain_step1_loss=plain_loss,
+               step1_loss_rel_diff=rel, step_s=walls,
+               step_s_median=statistics.median(walls),
+               tokens_per_s=S / statistics.median(walls),
+               launches_per_step=[n["flash_attention"] for n in launches],
+               peak_bytes=peak, grads_equal=grads_equal,
+               checkpoint_bytes=ckpt_bytes, save_copy_s=saved_s,
+               save_join_s=join_s, load_s=load_s, resumed_losses=resumed,
+               resume_bit_exact=same_params)
+    log(f"  train steps: losses {losses} (batch 0: {losses[0]:.4f} -> "
+        f"{after:.4f} after {n_steps} steps); step 1 plain-route loss "
+        f"{plain_loss:.6f} (rel diff {rel:.2e}); flash launches a step "
+        f"{out['launches_per_step']}; q/k/v gradients bitwise equal to the "
+        f"plain route's in {depth} layers [{CARD_NAME}]")
+    log(f"  train step wall {[round(w, 3) for w in walls]} s (median "
+        f"{out['step_s_median']:.3f} s, {out['tokens_per_s']:.0f} "
+        f"tokens/s), peak {peak / 2**30:.2f} GiB; checkpoint "
+        f"{ckpt_bytes / 1e9:.2f} GB: host copy {saved_s:.2f} s, write "
+        f"finished {join_s:.2f} s after step {n_steps}, load {load_s:.2f} "
+        f"s; steps {save_at + 1}-{n_steps} from it: losses {resumed}, "
+        f"params bit-equal {same_params} [{CARD_NAME}]")
+    return out
+
+
+def phase11_entry_points(rehearse: bool) -> dict:
+    """``launch/train.py`` and ``launch/serve.py`` on the card from their
+    flags, at their own reduction (no flash kernel): smokes, not
+    measures."""
+    from repro_torch.launch import train as train_launch
+    hist = train_launch.main(["--arch", "gemma2-9b", "--reduce", "16",
+                              "--steps", "3", "--batch", "2", "--seq", "64",
+                              "--device", str(DEV)])
+    check(len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist),
+          f"launch/train.py: {hist}")
+    served = {}
+    for aid in MOE_DEPTH:
+        r = serve.main(["--arch", aid, "--reduce", "16", "--batch", "2",
+                        "--prompt-len", "4", "--gen", "3", "--requests",
+                        "3", "--device", str(DEV)])
+        check(r["served"] == 3, f"launch/serve.py {aid}: {r['served']}")
+        served[aid] = dict(steps=r["steps"], seconds=r["seconds"])
+    return dict(train_losses=[h["loss"] for h in hist], serve=served)
+
+
+def phase_moe_train(rehearse: bool) -> dict:
+    """Phase 11: (a) the two MoE archs served, one after the other, (b)
+    the LM train step, (c) the training and serving entry points; then
+    the flash kernel held against its plain version at the MoE prefill's
+    shapes (the train step's are phase 2's gemma2 cases). Its own
+    generator, so the phase draws the same weights alone or after the
+    others."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    t0 = time.perf_counter()
+    out = {"moe": {}}
+    for aid in MOE_DEPTH:
+        out["moe"][aid] = phase11_moe(aid, rehearse, gen)
+        if DEV.type == "cuda":
+            torch.cuda.empty_cache()
+    out["train"] = phase11_train(rehearse, gen)
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    out["entry_points"] = phase11_entry_points(rehearse)
+    S = MOE_RUN["rehearse" if rehearse else "card"][0]
+    out["flash_cases"] = []
+    for aid in MOE_DEPTH:
+        c = moe_arch(aid, rehearse).cfg
+        out["flash_cases"].append(flash_case(
+            f"{aid} prefill", 1, c.n_heads, c.n_kv_heads, S, c.hd, None,
+            None, gen))
+        log_case("flash_attention", out["flash_cases"][-1])
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 11 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -2936,7 +3479,7 @@ def main_path_cases(main: dict, gen) -> dict:
 
 def kernel_line(cases: dict, main_cases: dict, main: dict,
                 lm: dict, dense: dict, served: dict, traced: dict,
-                sharded: dict, shards: dict) -> dict:
+                sharded: dict, shards: dict, moe_train: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
         if name == "contract_matmul":
@@ -2967,11 +3510,16 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             continue
         if name == "flash_attention":
             head = cases[name][0]                   # gemma2 global layers
+            every = cases[name] + moe_train["flash_cases"]
             rows.append(dict(
                 name=name, route="cuda", source=meta["source"],
                 replaces=meta["replaces"],
                 launches=lm["launches"][name],
-                max_abs_err=max(c["max_abs_err"] for c in cases[name]),
+                moe_prefill_launches={
+                    aid: r["launches"][name]
+                    for aid, r in moe_train["moe"].items()},
+                train_step_launches=moe_train["train"]["launches_per_step"],
+                max_abs_err=max(c["max_abs_err"] for c in every),
                 shape=head["shape"], ms=head["kernel_ms"],
                 kernel_ms=head["kernel_ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -2983,7 +3531,7 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
                 bound_share=head["bound_share"],
                 device_us_per_launch=lm.get("profile", {}).get(
                     "flash_attention", {}).get("device_us_per_launch"),
-                cases=cases[name]))
+                cases=every))
             continue
         shapes = main["main_shapes"][name]
         top = max(shapes, key=shapes.get)       # most launched shape
@@ -3115,10 +3663,13 @@ def main(argv=None) -> int:
         record["shards"] = phase_shards(main_rec, main_cases,
                                         record["sharded"], gen,
                                         args.rehearse)
+        log("phase 11: MoE serving (llama4-scout, grok-1) and the LM train "
+            "step (gemma2-9b)")
+        record["moe_train"] = phase_moe_train(args.rehearse)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
                            record["dense"], record["serve"],
                            record["trace"], record["sharded"],
-                           record["shards"])
+                           record["shards"], record["moe_train"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

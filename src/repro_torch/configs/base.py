@@ -1,24 +1,32 @@
 """Architecture registry of the port (after the JAX package's
-``configs/base.py``): every dense LM config, and the RAMA multicut config
-(``configs/rama_multicut.py``), is a selectable arch with its shapes, its
-steps and its analytic model FLOPs.
+``configs/base.py``): every LM config (dense and MoE), and the RAMA
+multicut config (``configs/rama_multicut.py``), is a selectable arch with
+its shapes, its steps and its analytic model FLOPs.
 
     arch = get_arch("gemma2-9b")
     prefill = arch.step_fn(arch.shapes["prefill_32k"])   # (params, tokens)
     decode = arch.step_fn(arch.shapes["decode_32k"])     # (params, cache,
                                                           #  token, cache_len)
+    train = arch.step_fn(arch.shapes["train_4k"])        # (params, opt,
+                                                          #  tokens, targets)
 
-Only ``prefill`` and ``decode`` steps exist; the train step, shardings and
-abstract (``eval_shape``) state of the JAX registry have no counterpart on
-one card without autograd (training: ROADMAP Queue 1 item 15). The GNN
-and recsys families are not registered here.
+The train step takes master params (``init_params(..., masters=True)``)
+and an ``init_opt_state(params, state_dtype=arch.opt_state_dtype)``
+state, and updates both in place. The shardings, ``for_mesh`` and the
+abstract (``eval_shape``) state of the JAX registry have no counterpart
+on one card. The GNN and recsys families are not registered here.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import torch
+
 from repro_torch.models import transformer as tfm
+from repro_torch.train.loop import value_and_grad
+from repro_torch.train.optimizer import OptimizerConfig, apply_update
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,17 +65,25 @@ LM_SHAPES = {
 class LMArch:
     id: str
     cfg: tfm.TransformerConfig
+    opt: OptimizerConfig = OptimizerConfig()
+    opt_state_dtype: torch.dtype | None = None
+    family: str = "lm"
+    # microbatches per train step (when they divide the batch)
+    grad_accum: int = 4
 
     @property
     def shapes(self):
         return LM_SHAPES
 
     def step_fn(self, shape: ShapeCell, backend: str = "cuda") -> Callable:
-        """The serving step of ``shape``: ``prefill_step(params, tokens)``
-        -> logits (attention through ``backend``), or
-        ``serve_step(params, cache, token, cache_len)`` -> (logits,
-        cache)."""
+        """The step of ``shape``, attention through ``backend``:
+        ``train_step(params, opt_state, tokens, targets)`` -> (params,
+        opt_state, {"loss", "lr", "grad_norm"}), ``prefill_step(params,
+        tokens)`` -> logits, or ``serve_step(params, cache, token,
+        cache_len)`` -> (logits, cache)."""
         cfg = self.cfg
+        if shape.kind == "train":
+            return self._train_step(backend)
         if shape.kind == "prefill":
             def prefill_step(params, tokens):
                 return tfm.forward(cfg, params, tokens, backend=backend)
@@ -76,11 +92,40 @@ class LMArch:
             def serve_step(params, cache, token, cache_len):
                 return tfm.decode_step(cfg, params, token, cache, cache_len)
             return serve_step
-        if shape.kind == "train":
-            raise NotImplementedError(
-                "the train step (loss_fn, the flash backward, the "
-                "optimizer) is not ported yet (ROADMAP Queue 1 item 15)")
         raise ValueError(shape.kind)
+
+    def _train_step(self, backend: str) -> Callable:
+        cfg, opt_cfg, ga = self.cfg, self.opt, self.grad_accum
+
+        def loss(p, tokens, targets):
+            return tfm.loss_fn(cfg, p, tokens, targets, backend=backend)
+
+        def train_step(params, opt_state, tokens, targets):
+            B = tokens.shape[0]
+            if ga > 1 and B % ga == 0:
+                tk = tokens.reshape(ga, B // ga, -1)
+                tg = targets.reshape(ga, B // ga, -1)
+                # accumulate in f32 unless the arch runs a reduced-
+                # precision optimizer (grok-1's bf16 posture)
+                acc_dt = self.opt_state_dtype or torch.float32
+                l = torch.zeros((), device=tokens.device)
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=acc_dt, device=p.device), params)
+                for i in range(ga):
+                    li, gi = value_and_grad(loss, params, tk[i], tg[i])
+                    l = l + li
+                    grads = tree_map(lambda a, g: a + g.to(acc_dt), grads,
+                                     gi)
+                    del gi
+                l = l / ga
+                grads = tree_map(lambda g, p: (g / ga).to(p.dtype), grads,
+                                 params)
+            else:
+                l, grads = value_and_grad(loss, params, tokens, targets)
+            params, opt_state, om = apply_update(opt_cfg, params, grads,
+                                                 opt_state)
+            return params, opt_state, {"loss": l, **om}
+        return train_step
 
     def model_flops(self, shape: ShapeCell) -> float:
         """MODEL_FLOPS = 6·N_active·D for train, 2·N_active·D for inference."""

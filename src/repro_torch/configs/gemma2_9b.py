@@ -24,4 +24,4 @@ CONFIG = TransformerConfig(
     use_flash=True,
 )
 
-ARCH = register(LMArch(id="gemma2-9b", cfg=CONFIG))
+ARCH = register(LMArch(id="gemma2-9b", cfg=CONFIG, grad_accum=8))

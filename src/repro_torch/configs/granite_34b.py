@@ -18,4 +18,4 @@ CONFIG = TransformerConfig(
     use_flash=True,
 )
 
-ARCH = register(LMArch(id="granite-34b", cfg=CONFIG))
+ARCH = register(LMArch(id="granite-34b", cfg=CONFIG, grad_accum=16))

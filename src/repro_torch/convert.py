@@ -36,18 +36,22 @@ def result_to_numpy(res: SolveResult) -> SolveResult:
 
 
 def transformer_params_from_numpy(tree, cfg: tfm.TransformerConfig,
-                                  device=None) -> tfm.Params:
+                                  device=None,
+                                  masters: bool = False) -> tfm.Params:
     """The port's transformer params from a JAX ``init_params`` tree
     (``{"embed", "layers": {...}, "final_norm", "lm_head"}``, layer
-    leaves stacked on a leading L axis; any array-likes), stored as
+    leaves stacked on a leading L axis, MoE's ``router`` (L, d, E) and
+    expert weights (L, E, d, ff) / (L, E, ff, d) among them; any
+    array-likes), stored as
     :func:`repro_torch.models.transformer.init_params` stores them: matmul
     weights rounded to ``cfg.dtype`` (the cast the JAX model makes at each
-    use), norms in ``cfg.param_dtype``."""
+    use), norms in ``cfg.param_dtype``; with ``masters`` every leaf in
+    ``cfg.param_dtype`` (the training layout, the JAX tree's own)."""
     dev = resolve_device(device)
 
     def leaf(name, a):
         t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
-        return t.to(device=dev, dtype=tfm._store_dtype(cfg, name))
+        return t.to(device=dev, dtype=tfm._store_dtype(cfg, name, masters))
 
     out = {k: leaf(k, a) for k, a in tree.items() if k != "layers"}
     out["layers"] = {k: leaf(k, a) for k, a in tree["layers"].items()}

@@ -84,6 +84,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -737,29 +738,66 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return run<D, false>(tq, tk, tv, p, B, stream);
 }
 
+// Make `device` current for this thread when it is not, and put back the
+// previous one when the launch is done.
+struct DeviceGuard {
+    int prev = -1;
+    cudaError_t err = cudaSuccess;
+    explicit DeviceGuard(int device) {
+        int cur = 0;
+        err = cudaGetDevice(&cur);
+        if (err == cudaSuccess && cur != device) {
+            err = cudaSetDevice(device);
+            prev = cur;
+        }
+    }
+    ~DeviceGuard() {
+        if (prev >= 0) cudaSetDevice(prev);
+    }
+};
+
+float word_float(long long w) {
+    const int32_t bits = (int32_t)w;
+    float f;
+    memcpy(&f, &bits, sizeof f);
+    return f;
+}
+
 }  // namespace
 
-// strides: 12 element strides (batch, head, row) of q, k, v, o in that
-// order; the last dimension must be contiguous, the others multiples of 8
-// elements, the bases 16-byte aligned (TMA's rules). window <= 0 and
-// softcap <= 0 mean none. Returns a cudaError_t (0 on success).
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Hq,
-                                   int Hkv, int S, int D,
-                                   const long long* strides, int causal,
-                                   int window, float softcap, float scale,
-                                   void* stream) {
+// The arguments come packed as 64-bit words: device, q, k, v, o, B, Hq,
+// Hkv, S, D, then 12 element strides (batch, head, row) of q, k, v, o in
+// that order, then causal, window, and the float32 bits of softcap and
+// scale. The last dimension must be contiguous, the other strides
+// multiples of 8 elements, the bases 16-byte aligned (TMA's rules).
+// window <= 0 and softcap <= 0 mean none. Returns a cudaError_t (0 on
+// success).
+extern "C" int flash_attention_fwd(const long long* w, void* stream) {
+    const int device = (int)w[0];
+    const void* q = (const void*)w[1];
+    const void* k = (const void*)w[2];
+    const void* v = (const void*)w[3];
+    void* o = (void*)w[4];
+    const long long B = w[5], Hq = w[6], Hkv = w[7], S = w[8], D = w[9];
+    const long long* strides = w + 10;
+    const int causal = (int)w[22], window = (int)w[23];
+    const float softcap = word_float(w[24]), scale = word_float(w[25]);
     if (B <= 0 || S <= 0 || Hq <= 0) return 0;
-    if (Hkv <= 0 || Hq % Hkv != 0)
+    if (Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535 || S > 2147483647LL)
         return (int)cudaErrorInvalidValue;
+    DeviceGuard guard(device);
+    if (guard.err != cudaSuccess) return (int)guard.err;
     cudaStream_t st = (cudaStream_t)stream;
     switch (D) {
-        case 96: return launch<96>(q, k, v, o, B, Hq, Hkv, S, strides, causal,
-                                   window, softcap, scale, st);
-        case 128: return launch<128>(q, k, v, o, B, Hq, Hkv, S, strides,
-                                     causal, window, softcap, scale, st);
-        case 256: return launch<256>(q, k, v, o, B, Hq, Hkv, S, strides,
-                                     causal, window, softcap, scale, st);
+        case 96: return launch<96>(q, k, v, o, (int)B, (int)Hq, (int)Hkv,
+                                   (int)S, strides, causal, window, softcap,
+                                   scale, st);
+        case 128: return launch<128>(q, k, v, o, (int)B, (int)Hq, (int)Hkv,
+                                     (int)S, strides, causal, window,
+                                     softcap, scale, st);
+        case 256: return launch<256>(q, k, v, o, (int)B, (int)Hq, (int)Hkv,
+                                     (int)S, strides, causal, window,
+                                     softcap, scale, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -174,7 +174,7 @@ class Launcher:
     ``argtypes`` set and the stream lookup fetched at the first call; each
     thread packs into its own words."""
 
-    WORDS = 16
+    WORDS = 32
 
     def __init__(self, name: str, symbol: str):
         self.name, self.symbol = name, symbol

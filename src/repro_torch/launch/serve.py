@@ -4,6 +4,9 @@ JAX package's ``launch/serve.py``, same flags plus ``--device``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --reduce 16 --batch 4 --prompt-len 64 --gen 32
 
+Serves every LM arch, the MoE ones (``llama4-scout-17b-a16e``,
+``grok-1-314b``) included.
+
 A batch of prompts is prefilled token by token into the cache through
 ``decode_step``, then new tokens are decoded greedily. Continuous batching
 is modelled by the request queue: finished sequences are replaced by
@@ -33,7 +36,8 @@ from repro_torch.models import transformer as tfm
 
 def _reduced_lm(cfg: tfm.TransformerConfig, factor: int):
     """Width/depth-reduced copy of an LM config (the JAX
-    ``launch/train.py::_reduced_lm``); ``factor <= 1`` is full size."""
+    ``launch/train.py::_reduced_lm``): MoE keeps at most 4 experts;
+    ``factor <= 1`` is full size."""
     if factor <= 1:
         return cfg
     return dataclasses.replace(
@@ -45,6 +49,7 @@ def _reduced_lm(cfg: tfm.TransformerConfig, factor: int):
         head_dim=max(16, cfg.hd // factor),
         d_ff=max(128, cfg.d_ff // factor),
         vocab=max(256, cfg.vocab // (factor * 8)),
+        n_experts=min(cfg.n_experts, 4) if cfg.moe else 0,
         use_flash=False)
 
 

@@ -1,6 +1,8 @@
-"""Maps over nested NamedTuples of tensors (instances, results, delta
-states, patches): the port's stand-in for ``jax.tree.map`` on the
-structures the batched API and the serving engine stack and slice."""
+"""Maps over nested NamedTuples and dicts of tensors (instances, results,
+delta states, patches; parameter, gradient and optimizer-state trees):
+the port's stand-in for ``jax.tree.map`` on the structures the batched
+API and the serving engine stack and slice and the training step
+updates. Dicts keep their insertion order (``jax.tree`` sorts keys)."""
 from __future__ import annotations
 
 import torch
@@ -10,12 +12,15 @@ __all__ = ["tree_leaves", "tree_map"]
 
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf to trees of one structure: tensors are
-    leaves, tuples and NamedTuples are rebuilt with their own type, None
-    stays None."""
+    leaves, tuples and NamedTuples are rebuilt with their own type, dicts
+    with ``tree``'s keys, None stays None."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     if tree is None:
         return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, tuple):
         kids = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
         return type(tree)(*kids) if hasattr(tree, "_fields") \
@@ -27,6 +32,8 @@ def tree_leaves(tree) -> list:
     """The tensors of a tree, depth first."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        tree = tuple(tree.values())
     if isinstance(tree, tuple):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return []

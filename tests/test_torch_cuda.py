@@ -345,6 +345,67 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
         flash_ops.flash_attention(q.float(), k.float(), v.float())
 
 
+@pytest.mark.cuda
+def test_trainable_flash_kernel_route_grads_equal_plain(cuda_device):
+    """``flash_attention_trainable`` on the card: the kernel route launches
+    the kernel once for its forward, the plain route none; both backwards
+    recompute ``chunked_attention`` from q, k and v, so their gradients
+    are equal bit for bit (gemma2-9b's local layer shape at S = 1000)."""
+    q, k, v = _qkv(1, 16, 8, 1000, 256, 5, cuda_device)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda_device)
+                    .manual_seed(0), device=cuda_device).bfloat16()
+    kw = dict(causal=True, window=300, softcap=50.0)
+    outs, grads = {}, {}
+    for backend in ("cuda", "reference"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = flash_ops.launches
+        outs[backend] = flash_ops.flash_attention_trainable(
+            *leaves, backend=backend, **kw)
+        assert flash_ops.launches == n0 + (backend == "cuda")
+        grads[backend] = torch.autograd.grad(outs[backend], leaves, g)
+    for a, b in zip(grads["cuda"], grads["reference"]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(outs["cuda"].float(),
+                               outs["reference"].float(), **FLASH_TOL)
+
+
+@pytest.mark.cuda
+def test_moe_routing_card_equals_cpu(cuda_device):
+    """MoE routing on the card equals the CPU's exactly, ties included:
+    small-integer tokens and router weights make every bf16 logit exact on
+    both devices, so equal gates are common and the stable sort must send
+    each tie to the lower expert on both; the block's outputs agree."""
+    from repro_torch.models import transformer as tfm
+    cfg = tfm.TransformerConfig(moe=True, n_experts=16, top_k=2,
+                                d_model=128, d_ff=256,
+                                capacity_factor=1.0, dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(-1, 2, (4096, 128)).astype(
+        np.float32)).bfloat16()
+    router = torch.from_numpy(rng.integers(-2, 3, (128, 16)).astype(
+        np.float32)).bfloat16()
+    router[:, 9] = router[:, 3]
+    lp = {"router": router}
+    for w, shape in (("w_gate", (16, 128, 256)), ("w_up", (16, 128, 256)),
+                     ("w_down", (16, 256, 128))):
+        lp[w] = torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32) / 16).bfloat16()
+    cpu = tfm.moe_route(cfg, router, x)
+    card = tfm.moe_route(cfg, router.to(cuda_device), x.to(cuda_device))
+    for a, b in zip(cpu[:4], card[:4]):
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(b.cpu(), a)
+    assert not bool(cpu.keep.all())
+    h = x.view(2, 2048, 128)
+    got = tfm.moe_block(cfg, {k: t.to(cuda_device) for k, t in lp.items()},
+                        h.to(cuda_device))
+    torch.testing.assert_close(got.cpu().float(),
+                               tfm.moe_block(cfg, lp, h).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
 def test_flash_wrapper_raises_without_a_kernel_route():
     """Other devices, gradients, unknown backends and bad masks raise;
     nothing falls back quietly."""
@@ -353,7 +414,8 @@ def test_flash_wrapper_raises_without_a_kernel_route():
         flash_ops.flash_attention(meta, meta[:, :1], meta[:, :1])
     q = torch.zeros((1, 2, 8, 16), requires_grad=True)
     k = torch.zeros((1, 1, 8, 16))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError,
+                       match="flash_attention_trainable"):
         flash_ops.flash_attention(q, k, k)
     with torch.no_grad():
         out = flash_ops.flash_attention(q, k, k)

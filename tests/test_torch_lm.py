@@ -47,6 +47,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 )
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
 
 LM_IDS = ["gemma2-9b", "phi3-mini-3.8b", "granite-34b"]
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -112,10 +113,19 @@ def test_configs_match_jax():
             assert tbase.LM_SHAPES[name].dims == shape.dims
             assert t.model_flops(tbase.LM_SHAPES[name]) == \
                 j.model_flops(shape)
-    assert set(tbase.REGISTRY) == set(LM_IDS) | {"rama-multicut"}
+    assert set(tbase.REGISTRY) == set(LM_IDS) | {
+        "rama-multicut", "llama4-scout-17b-a16e", "grok-1-314b"}
     assert get_arch("gemma2-9b").cfg.params_count == 10_158_908_928
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_arch("gemma2-9b").step_fn(tbase.LM_SHAPES["train_4k"])
+    # the train step is ported: one step of reduced gemma2 on the CPU
+    arch = get_arch("gemma2-9b")
+    arch = dataclasses.replace(arch, cfg=_port_cfg(_reduced(
+        JREGISTRY["gemma2-9b"].cfg)))
+    params = ttfm.init_params(arch.cfg, torch.Generator().manual_seed(0),
+                              "cpu", masters=True)
+    tok = torch.from_numpy(_tokens(1, 8, 256, 0))
+    _, opt, m = arch.step_fn(tbase.LM_SHAPES["train_4k"])(
+        params, topt.init_opt_state(params), tok, tok)
+    assert int(opt.step) == 1 and bool(torch.isfinite(m["loss"]))
 
 
 def test_params_carried_across(model):
@@ -233,17 +243,20 @@ def test_serve_loop_matches_jax(monkeypatch):
 
 
 def test_serve_main_and_unported_parts():
-    """The port's serving loop runs end to end from its flags on the CPU; MoE
-    and a missing card raise."""
+    """The port's serving loop runs end to end from its flags on the CPU;
+    MoE (once unported) builds and runs forward; a missing card raises."""
     out = tserve.main(["--arch", "phi3-mini-3.8b", "--reduce", "16",
                        "--batch", "2", "--prompt-len", "3", "--gen", "2",
                        "--requests", "3", "--device", "cpu"])
     assert out["served"] == 3 and out["n_decoded"] == 2 * out["steps"]
-    moe = ttfm.TransformerConfig(moe=True, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttfm.init_params(moe, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttfm.forward(moe, {}, torch.zeros((1, 2), dtype=torch.int32))
+    moe = ttfm.TransformerConfig(moe=True, n_experts=4, top_k=2,
+                                 n_layers=2, d_model=32, d_ff=64, vocab=64,
+                                 dtype=torch.float32)
+    params = ttfm.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    assert params["layers"]["router"].shape == (2, 32, 4)
+    assert params["layers"]["w_gate"].shape == (2, 4, 32, 64)
+    logits = ttfm.forward(moe, params, torch.zeros((1, 2), dtype=torch.int32))
+    assert logits.shape == (1, 2, 64) and bool(torch.isfinite(logits).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ttfm.init_kv_cache(moe, 1, 4)

@@ -128,13 +128,13 @@ def test_api_raises_for_unported_parts():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (the solve server, delta solves, observability
-    and the solve trace, the batch and registry entry points, the
-    baselines, the roofline profile, the multicut arch config, the
-    collectives, the sharded solve and the local rank launcher
-    included, and the modules that shard separation, batches and the
-    roofline profile), and chip_smoke.py's own imports, load no jax and no
-    module of the JAX package."""
+    """Importing the port (the LM serving and training modules, the solve
+    server, delta solves, observability and the solve trace, the batch
+    and registry entry points, the baselines, the roofline profile, the
+    multicut arch config, the collectives, the sharded solve and the
+    local rank launcher included, and the modules that shard separation,
+    batches and the roofline profile), and chip_smoke.py's own imports,
+    load no jax and no module of the JAX package."""
     code = (
         "import sys, runpy\n"
         "import repro_torch.api, repro_torch.convert\n"
@@ -143,7 +143,10 @@ def test_port_imports_no_jax():
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.contract_matmul.ops\n"
         "import repro_torch.models.transformer, repro_torch.configs\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.train, repro_torch.data.synthetic\n"
+        "import repro_torch.configs.llama4_scout_17b_a16e\n"
+        "import repro_torch.configs.grok_1_314b\n"
         "import repro_torch.serve, repro_torch.incremental, repro_torch.obs\n"
         "from repro_torch.api import (solve_batch, solve_delta,\n"
         "    solve_with_state, stack_instances, unstack_results, tree_ready,\n"
@@ -191,6 +194,8 @@ def test_chip_smoke_rehearsal_on_cpu():
         "the batch_shards=2 route: triangle_mp T" in out.stdout and \
         "each equal to its plain version" in out.stdout
     assert "traced pd+ sparse: bit-equal" in out.stdout
+    assert "phase 11" in out.stdout and "grok-1-314b decode at context" \
+        in out.stdout and "params bit-equal True" in out.stdout
     assert "labels equal True" in out.stdout
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
