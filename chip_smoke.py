@@ -208,6 +208,33 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    ``launch/serve.py`` (both MoE archs) on the card at ``--reduce 16``.
    Then the flash kernel against its plain version at the two MoE
    prefill shapes.
+12. The sparse substrate's families at full width, all torch ops (none
+   of the four kernels; each path's counters must read 0), float32
+   matmuls with TF32 off. (a) wide-deep (40 fields of 10^6 rows x 32,
+   5.12 GB of tables): ``serve_p99`` (512) and ``serve_bulk`` (262 144)
+   through the registry's serve step, median latency and examples/s;
+   the first 4 096 bulk logits against the port's CPU forward on the
+   same tables (rel 1e-4); ``retrieval_cand`` (1 000 448 padded
+   candidates x 64, top 128; no padding row may win) against the CPU
+   (values rtol 1e-5, indices equal where the values are distinct);
+   three registry train steps at 65 536 on one batch: the loss falls,
+   step walls, peak memory. (b) The registry's train steps: dimenet,
+   egnn and mace on ``molecule`` (N 4 096, E 8 192, dimenet's T 16 384),
+   graphcast's processor on ``full_graph_sm`` (padded 3 072 / 10 752,
+   d_feat 1 433) and ``minibatch_lg`` (196 608 / 212 992, d_feat 602):
+   four steps on one batch (a warm-up, the median of three timed), the
+   loss falling, peak memory, model TFLOP/s; on ``molecule`` and
+   ``full_graph_sm`` step 1's loss and gradient norm within 1e-3 of the
+   port on the CPU (same params and batch). (c) GraphCast's native
+   weather path at its config (refinement 6: 40 962 mesh nodes, 327 660
+   mesh edges; 181 x 360 grid; 227 vars; 16 x 512): the host topology's
+   seconds, forwards and train steps with walls and peaks, a 2-step
+   rollout that stays finite. (d) ``repro_torch.examples.gnn_multicut``
+   on the card (its RAMA-agreement assert), its solve equal to the plain
+   backend's bit for bit and to the CPU's solve of the same costs
+   (labels and integers exactly, objective and bound within 1e-5
+   relative), ``triangle_mp`` held against its plain version at the
+   shapes this solve gave it.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -222,7 +249,9 @@ grid with patches of 40, 5 and 5, phase 8 on 20×20 grids with 64-edge
 ingest chunks and small arch cells, phase 9 on a one-rank gloo group
 with 20×20 and 12×12 grids and a small ``dist_pd`` cell, phase 10 on the
 20×20 grid and 16×16 batches, phase 11 on width-64 copies of its
-archs at S = 128 (MoE) and 48 (training)), with each
+archs at S = 128 (MoE) and 48 (training), phase 12 at 1 000 rows a
+field, batches of 16-64, 2-layer GNNs of width 16-32 on 512 padded
+nodes and edges, the weather example's config), with each
 kernel wrapper running its plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
@@ -3464,6 +3493,538 @@ def phase_moe_train(rehearse: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the sparse substrate's families (GNN, wide-deep) at full width
+# ---------------------------------------------------------------------------
+
+# (a) wide-deep: (rows a field, serve batches, retrieval candidates, train
+# batch, rows of the serve batch held against the CPU, timed calls of the
+# small and the large serve batch)
+RECSYS_RUN = {"card": (1_000_000, (512, 262_144), 1_000_000, 65_536, 4096,
+                       (20, 5)),
+              "rehearse": (1000, (16, 64), 1000, 64, 16, (2, 2))}
+# card vs CPU: serve logits (float32 matmuls, TF32 off; the card's MLP
+# sums in another order) and retrieval scores (a 64-long dot each)
+RECSYS_CPU_REL_TOL = 1e-4
+RETRIEVAL_CPU_TOL = dict(rtol=1e-5, atol=1e-5)
+RECSYS_TRAIN_STEPS = 3          # on one batch: the loss must fall
+# (b) the registry's GNN train steps at full width: (arch, shape)
+GNN_CELLS = [("dimenet", "molecule"), ("egnn", "molecule"),
+             ("mace", "molecule"), ("graphcast", "full_graph_sm"),
+             ("graphcast", "minibatch_lg")]
+GNN_CPU_SHAPES = ("molecule", "full_graph_sm")   # step 1 held vs the CPU
+GNN_CPU_REL_TOL = 1e-3          # step-1 loss and gradient norm
+GNN_STEPS = 4                   # one batch: a warm-up, then 3 timed
+# the GNN steps' optimizer: the registry's AdamW unwarmed at lr 1e-4 (at
+# 3e-4, Adam's first sign-sized steps overshoot on graphcast's 16 x 512
+# processor: full_graph_sm's loss read 1.966, 2.198, 1.995, 2.000 over
+# four steps on the H100)
+GNN_OPT = dict(lr=1e-4, warmup_steps=0, schedule="constant")
+GNN_REHEARSE = {
+    "dims": {"molecule": dict(n_nodes=8, n_edges=16, batch=4, d_feat=16,
+                              task="energy"),
+             "full_graph_sm": dict(n_nodes=32, n_edges=64, d_feat=12,
+                                   n_classes=7, task="node_cls"),
+             "minibatch_lg": dict(n_nodes=64, n_edges=96, d_feat=10,
+                                  n_classes=41, task="node_cls",
+                                  n_seeds=16)},
+    "cut": {"dimenet": dict(n_blocks=2, d_hidden=16),
+            "egnn": dict(n_layers=2, d_hidden=16),
+            "mace": dict(n_layers=2, d_hidden=16),
+            "graphcast": dict(n_layers=2, d_hidden=32)}}
+WEATHER_STEPS = 3               # (c): a warm-up train step, then 2 timed
+NO_KERNELS = {"triangle_mp": 0, "cycle_intersect": 0, "flash_attention": 0,
+              "contract_matmul": 0}
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def peak_reset():
+    if DEV.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes() -> int:
+    return torch.cuda.max_memory_allocated() if DEV.type == "cuda" else 0
+
+
+def empty_cache():
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def timed_call(fn, reps: int) -> tuple[float, list]:
+    """(median seconds, every wall) of ``reps`` calls of ``fn``, each
+    ended by a synchronise, after one warm-up call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def check_no_kernels(what: str):
+    n = all_launches()
+    check(n == NO_KERNELS, f"{what} launched {n}: no kernel of the port is "
+          f"on this path")
+
+
+def phase12_recsys(rehearse: bool, gen) -> dict:
+    """(a) wide-deep at full width: serve at batch 512 and 262 144,
+    retrieval over 1 000 448 padded candidates, the train step at 65 536
+    (three on one batch); the serve logits of the first rows and the
+    retrieval held against the CPU."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import recsys as rs
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.tree import tree_map
+    V, serve_b, n_cand, train_b, n_par, (reps_s, reps_b) = RECSYS_RUN[
+        "rehearse" if rehearse else "card"]
+    arch = get_arch("wide-deep")
+    arch = dataclasses.replace(
+        arch, cfg=dataclasses.replace(arch.cfg, vocab_per_field=V),
+        opt=dataclasses.replace(arch.opt, **TRAIN_OPT))
+    cfg, shapes = arch.cfg, arch.shapes
+    reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    params = rs.init_params(cfg, gen)
+    sync()
+    init_s = time.perf_counter() - t0
+    out = dict(config=dataclasses.asdict(cfg), init_s=init_s,
+               param_bytes=tree_bytes(params),
+               table_bytes=tree_bytes([params["tables"],
+                                       params["wide_tables"]]))
+
+    def batch(step, B):
+        return synthetic.recsys_batch(step, B, cfg.n_sparse, V, cfg.n_dense,
+                                      bag=cfg.multi_hot, device=DEV)
+
+    serve = arch.step_fn(shapes["serve_p99"])
+    for name, B, reps in (("serve_p99", serve_b[0], reps_s),
+                          ("serve_bulk", serve_b[1], reps_b)):
+        b = batch(1, B)
+        peak_reset()
+        with torch.no_grad():
+            med, walls = timed_call(
+                lambda: serve(params, b["sparse_idx"], b["dense_feats"]),
+                reps)
+            logits = serve(params, b["sparse_idx"], b["dense_feats"])
+        check(logits.shape == (B,) and bool(torch.isfinite(logits).all()),
+              f"{name}: logits {tuple(logits.shape)} not finite")
+        flops = arch.model_flops(dataclasses.replace(shapes[name],
+                                                     dims=dict(batch=B)))
+        out[name] = dict(batch=B, median_s=med, walls=walls,
+                         examples_per_s=B / med, peak_bytes=peak_bytes(),
+                         model_tflop_per_s=flops / med / 1e12)
+        log(f"  wide-deep {name} (batch {B}): median {1e3 * med:.3f} ms, "
+            f"{B / med:.0f} examples/s, peak "
+            f"{out[name]['peak_bytes'] / 2**30:.2f} GiB [{CARD_NAME}]")
+    # the first rows of the bulk batch against the port's CPU forward on
+    # the same tables (every param copied to the host)
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    copy_s = time.perf_counter() - t0
+    with torch.no_grad():
+        want = rs.forward(cfg, cpu_params, b["sparse_idx"][:n_par].cpu(),
+                          b["dense_feats"][:n_par].cpu())
+    got = logits[:n_par].cpu()
+    diff = float((got - want).abs().max())
+    rel = diff / max(float(want.abs().max()), 1e-30)
+    check(rel <= RECSYS_CPU_REL_TOL, f"serve logits card vs CPU: max |diff| "
+          f"{diff} = {rel:.2e} of max |CPU|")
+    out["cpu_parity"] = dict(rows=n_par, max_abs_diff=diff, rel_diff=rel,
+                             bitwise_equal=bool(torch.equal(got, want)),
+                             host_copy_s=copy_s)
+    del cpu_params, logits
+    # retrieval: candidates padded to a 512-multiple; the padding rows are
+    # 0 (score 0) and must not reach the top 128 of random candidates
+    rshape = dataclasses.replace(shapes["retrieval_cand"], dims=dict(
+        batch=1, n_candidates=n_cand))
+    specs = arch.input_specs(rshape)
+    nc = specs["cands"].shape[0]
+    q = torch.randn(specs["query"].shape, generator=gen, device=DEV)
+    cands = torch.randn((nc, cfg.cand_dim), generator=gen, device=DEV)
+    cands[n_cand:] = 0
+    retrieve = arch.step_fn(rshape)
+    med, walls = timed_call(lambda: retrieve(q, cands), reps_s)
+    vals, idx = retrieve(q, cands)
+    check(int(idx.max()) < n_cand, f"retrieval picked a padding row "
+          f"{int(idx.max())} >= {n_cand}")
+    cv, ci = torch.topk(rs.retrieval_score(q.cpu(), cands.cpu()),
+                        vals.shape[0])
+    gv = vals.cpu()
+    vdiff = float((gv - cv).abs().max())
+    check(torch.allclose(gv, cv, **RETRIEVAL_CPU_TOL),
+          f"retrieval values card vs CPU: max |diff| {vdiff}")
+    distinct = torch.ones_like(cv, dtype=torch.bool)
+    distinct[1:] &= cv[1:] != cv[:-1]
+    distinct[:-1] &= cv[:-1] != cv[1:]
+    idx_equal = bool(torch.equal(idx.cpu().long()[distinct], ci[distinct]))
+    check(idx_equal, "retrieval indices card vs CPU differ where the values "
+          "are distinct")
+    out["retrieval"] = dict(
+        n_candidates=n_cand, padded=nc, top_k=int(vals.shape[0]),
+        median_s=med, walls=walls, candidates_per_s=n_cand / med,
+        candidate_bytes=nc * cfg.cand_dim * 4,
+        max_abs_diff_vs_cpu=vdiff,
+        values_bitwise_equal_cpu=bool(torch.equal(gv, cv)),
+        indices_equal_where_distinct=idx_equal)
+    log(f"  wide-deep retrieval_cand ({n_cand} candidates padded to {nc}, "
+        f"top {vals.shape[0]}): median {1e3 * med:.3f} ms, "
+        f"{nc * cfg.cand_dim * 4 / med / 1e9:.1f} GB/s of candidates; "
+        f"values vs CPU max |diff| {vdiff:.2e} (bitwise "
+        f"{out['retrieval']['values_bitwise_equal_cpu']}) [{CARD_NAME}]")
+    del cands
+    # train: three registry steps on one batch of train_batch's size
+    step = arch.step_fn(shapes["train_batch"])
+    b = batch(2, train_b)
+    opt = init_opt_state(params)
+    out["state_bytes"] = tree_bytes(params) + tree_bytes(opt)
+    peak_reset()
+    losses, walls = [], []
+    for _ in range(RECSYS_TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b["sparse_idx"],
+                              b["dense_feats"], b["labels"])
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = peak_bytes()
+    with torch.no_grad():
+        after = float(rs.loss_fn(cfg, params, b["sparse_idx"],
+                                 b["dense_feats"], b["labels"]))
+    check(all(np.isfinite(losses)) and after < losses[0],
+          f"wide-deep train: losses {losses}, then {after}: did not fall")
+    med = statistics.median(walls)
+    flops = arch.model_flops(dataclasses.replace(shapes["train_batch"],
+                                                 dims=dict(batch=train_b)))
+    out["train"] = dict(batch=train_b, losses=losses, loss_after=after,
+                        step_s=walls, step_s_median=med,
+                        examples_per_s=train_b / med,
+                        model_tflop_per_s=flops / med / 1e12,
+                        peak_bytes=peak, opt=dataclasses.asdict(arch.opt))
+    check_no_kernels("wide-deep")
+    log(f"  wide-deep train_batch ({train_b}): step walls "
+        f"{[round(w, 4) for w in walls]} s, losses {losses} -> {after:.6f}, "
+        f"peak {peak / 2**30:.2f} GiB with {out['state_bytes'] / 1e9:.2f} GB "
+        f"of params and AdamW moments [{CARD_NAME}]")
+    del params, opt
+    return out
+
+
+def gnn_cell(aid: str, shape_name: str, rehearse: bool):
+    """The registry's arch and shape with GNN_OPT; on the CPU cut to 2
+    layers at small dims."""
+    arch = get_arch(aid)
+    shape = arch.shapes[shape_name]
+    if rehearse:
+        arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+            arch.cfg, **GNN_REHEARSE["cut"][aid]))
+        shape = dataclasses.replace(shape,
+                                    dims=GNN_REHEARSE["dims"][shape_name])
+    return dataclasses.replace(arch, opt=dataclasses.replace(
+        arch.opt, **GNN_OPT)), shape
+
+
+def gnn_batch(arch, shape) -> dict:
+    """The step's inputs at the arch's padded shape, from the port's
+    synthetic batches (seed 0, step 0); padded nodes and edges masked, a
+    ``minibatch_lg`` batch's labels on its first ``n_seeds`` nodes."""
+    from repro_torch.data import synthetic
+    from repro_torch.models.gnn.common import build_triplets
+    d = arch._dims(shape)
+    N, E = d["N"], d["E"]
+    if d["task"] == "energy":
+        g = synthetic.molecule_train_batch(0, d["batch"], d["n_nodes"],
+                                           d["n_edges"], d["d_feat"],
+                                           device=DEV)
+    else:
+        g = synthetic.node_classification_batch(
+            0, d["n_nodes"], d["n_edges"], d["d_feat"], d["n_classes"],
+            device=DEV)
+
+    def pad(t, size, fill=0):
+        out = torch.full((size,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
+                         device=DEV)
+        out[:t.shape[0]] = t
+        return out
+
+    b = dict(nodes=pad(g.nodes, N), edges_src=pad(g.edges_src, E),
+             edges_dst=pad(g.edges_dst, E),
+             node_mask=pad(g.node_mask, N, False),
+             edge_mask=pad(g.edge_mask, E, False),
+             graph_ids=pad(g.graph_ids, N))
+    if d["task"] == "energy":
+        b["labels_f"] = g.labels
+        b["positions"] = pad(g.positions, N)
+    else:
+        b["labels_i"] = pad(g.labels, N)
+        b["label_mask"] = pad(g.node_mask, N, False)
+        if "n_seeds" in d:
+            b["label_mask"][d["n_seeds"]:] = False
+    specs = arch.input_specs(shape)
+    if "tri_kj" in specs:
+        tri = build_triplets(g.edges_src.cpu().numpy(),
+                             g.edges_dst.cpu().numpy(),
+                             specs["tri_kj"].shape[0])
+        for k, a in zip(("tri_kj", "tri_ji", "tri_mask"), tri):
+            b[k] = torch.from_numpy(a).to(DEV)
+    for k, s in specs.items():
+        check(tuple(b[k].shape) == s.shape and b[k].dtype == s.dtype,
+              f"gnn batch {k}: {tuple(b[k].shape)} {b[k].dtype} vs {s}")
+    return {k: b[k] for k in specs}
+
+
+def phase12_gnn_cell(aid: str, shape_name: str, rehearse: bool, gen) -> dict:
+    """One registry train step cell: GNN_STEPS steps on one batch (the
+    first a warm-up, then timed), the loss falling, peak memory; on
+    GNN_CPU_SHAPES step 1's loss and gradient norm against the port on
+    the CPU with the same params and batch."""
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.tree import tree_leaves, tree_map
+    arch, shape = gnn_cell(aid, shape_name, rehearse)
+    d = arch._dims(shape)
+    t0 = time.perf_counter()
+    batch = gnn_batch(arch, shape)
+    sync()
+    batch_s = time.perf_counter() - t0
+    params = arch.init_params(shape, gen)
+    opt = init_opt_state(params)
+    step = arch.step_fn(shape)
+    cpu = None
+    if shape_name in GNN_CPU_SHAPES:
+        cp = tree_map(lambda t: t.cpu(), params)
+        cb = {k: v.cpu() for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(arch._loss(shape), cp, cb)
+        gnorm = torch.sqrt(sum(g.square().sum() for g in tree_leaves(grads)))
+        cpu = dict(loss=float(loss), grad_norm=float(gnorm),
+                   seconds=time.perf_counter() - t0)
+        del cp, cb, grads
+    reset_counters()
+    peak_reset()
+    losses, gnorms, walls = [], [], []
+    for _ in range(GNN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, **batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = peak_bytes()
+    check_no_kernels(f"{aid} on {shape_name}")
+    check(all(np.isfinite(losses + gnorms)), f"{aid} {shape_name}: losses "
+          f"{losses}, gradient norms {gnorms}")
+    check(losses[-1] < losses[0], f"{aid} {shape_name}: losses {losses} did "
+          f"not fall over {GNN_STEPS - 1} steps on one batch")
+    if cpu is not None:
+        for k, got in (("loss", losses[0]), ("grad_norm", gnorms[0])):
+            rel = abs(got - cpu[k]) / max(abs(cpu[k]), 1e-30)
+            cpu[f"{k}_rel_diff"] = rel
+            check(rel <= GNN_CPU_REL_TOL, f"{aid} {shape_name} step 1 {k}: "
+                  f"card {got} vs CPU {cpu[k]}")
+    med = statistics.median(walls[1:])
+    flops = arch.model_flops(shape)
+    out = dict(arch=aid, shape=shape_name,
+               dims=dict(N=d["N"], E=d["E"], d_feat=d["d_feat"],
+                         T=arch.tri_factor * d["E"] if aid == "dimenet"
+                         else None),
+               config=dataclasses.asdict(arch.cfg),
+               params=sum(t.numel() for t in tree_leaves(params)),
+               batch_s=batch_s, losses=losses, grad_norms=gnorms,
+               step_s=walls, step_s_median=med, peak_bytes=peak,
+               model_flops=flops, model_tflop_per_s=flops / med / 1e12,
+               cpu=cpu)
+    log(f"  {aid} on {shape_name} (N {d['N']}, E {d['E']}): step median "
+        f"{1e3 * med:.1f} ms of {[round(1e3 * w, 1) for w in walls]}, "
+        f"{flops / med / 1e12:.2f} model TFLOP/s, peak "
+        f"{peak / 2**30:.2f} GiB; losses {[round(x, 5) for x in losses]}"
+        + ("" if cpu is None else
+           f"; step 1 vs CPU: loss {cpu['loss_rel_diff']:.1e}, gradient "
+           f"norm {cpu['grad_norm_rel_diff']:.1e}") + f" [{CARD_NAME}]")
+    del params, opt, batch
+    return out
+
+
+def phase12_weather(rehearse: bool, gen) -> dict:
+    """(c) GraphCast's native weather path at its config: the topology on
+    the host, forwards and train steps (walls, peaks), a 2-step rollout."""
+    from repro_torch.data import synthetic
+    from repro_torch.examples import weather_graphcast
+    from repro_torch.models.gnn import graphcast as gc
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import (
+        OptimizerConfig, apply_update, init_opt_state,
+    )
+    cfg = weather_graphcast.CFG if rehearse else get_arch("graphcast").cfg
+    t0 = time.perf_counter()
+    topo = gc.build_topology(cfg, seed=0, device=DEV)
+    sync()
+    topo_s = time.perf_counter() - t0
+    sizes = dict(n_grid=cfg.n_grid, n_mesh=cfg.n_mesh,
+                 mesh_edges=len(topo.mesh_src), g2m_edges=len(topo.g2m_src),
+                 m2g_edges=len(topo.m2g_src))
+    check((sizes["mesh_edges"], sizes["g2m_edges"], sizes["m2g_edges"])
+          == (cfg.n_mesh_edges, cfg.n_g2m_edges, cfg.n_m2g_edges),
+          f"graphcast topology sizes {sizes}")
+    params = gc.init_params(cfg, gen)
+    b = synthetic.grid_weather_batch(0, cfg.n_grid, cfg.n_vars, device=DEV)
+    x, y = b["grid_feats"], b["target"]
+    reset_counters()
+    peak_reset()
+    with torch.no_grad():
+        fwd_med, fwd_walls = timed_call(
+            lambda: gc.forward(cfg, params, x, topo), 3)
+    fwd_peak = peak_bytes()
+    ocfg = OptimizerConfig(**GNN_OPT)
+    opt = init_opt_state(params)
+    peak_reset()
+    losses, walls = [], []
+    for _ in range(WEATHER_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda p: gc.loss_fn(cfg, p, x, y, topo), params)
+        params, opt, _ = apply_update(ocfg, params, grads, opt)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        del grads
+    train_peak = peak_bytes()
+    with torch.no_grad():
+        s1 = gc.forward(cfg, params, x, topo)
+        s2 = gc.forward(cfg, params, s1, topo)
+    finite = bool(torch.isfinite(s1).all() and torch.isfinite(s2).all())
+    check(finite and all(np.isfinite(losses)),
+          f"graphcast weather: losses {losses}, rollout finite {finite}")
+    check_no_kernels("graphcast weather")
+    out = dict(config=dataclasses.asdict(cfg), sizes=sizes,
+               topology_s=topo_s, forward_s_median=fwd_med,
+               forward_s=fwd_walls, forward_peak_bytes=fwd_peak,
+               train_step_s=walls,
+               train_step_s_median=statistics.median(walls[1:]),
+               train_peak_bytes=train_peak, losses=losses,
+               rollout_mean_abs=[float(s1.abs().mean()),
+                                 float(s2.abs().mean())])
+    log(f"  graphcast weather ({cfg.grid_lat}x{cfg.grid_lon} grid, "
+        f"refinement {cfg.mesh_refinement}: {cfg.n_mesh} mesh nodes, "
+        f"{sizes['mesh_edges']} mesh edges; {cfg.n_layers} x "
+        f"{cfg.d_hidden}, {cfg.n_vars} vars): topology {topo_s:.2f} s on "
+        f"the host; forward median {fwd_med:.3f} s, peak "
+        f"{fwd_peak / 2**30:.2f} GiB; train steps "
+        f"{[round(w, 3) for w in walls]} s, peak "
+        f"{train_peak / 2**30:.2f} GiB; losses {losses}; 2-step rollout "
+        f"finite [{CARD_NAME}]")
+    del params, opt, topo
+    return out
+
+
+def phase12_gnn_multicut(gen) -> dict:
+    """(d) ``repro_torch.examples.gnn_multicut`` on the card at its own
+    config (its assert is the RAMA-agreement gate), counters zeroed just
+    before and read just after; the card's solve equals the plain
+    backend's on the card bit for bit, and the CPU port's solve of the
+    same cost array in labels and every integer field, objective and
+    bound within CPU_REL_TOL (phase 4's and 6's gate: the dense path's
+    bound sums in the device's order); triangle_mp held against its
+    plain version at the MP shapes this solve gave it."""
+    from repro_torch.examples import gnn_multicut as gm
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        ex = gm.main(["--device", str(DEV)])
+    except AssertionError as e:
+        raise SmokeFailure(f"gnn_multicut: {e}") from e
+    example_s = time.perf_counter() - t0
+    launches, shapes = all_launches(), path_shapes()
+    res = host(ex["result"])
+    inst = gm.instance(ex["src"], ex["dst"], ex["logit"], DEV)
+    ref = host(api.solve(inst, mode="pd", config=gm.SOLVER,
+                         backend="reference", device=DEV))
+    diff = same_result(res, ref)
+    check(not diff, f"gnn_multicut: kernel backend != reference in {diff}")
+    cpu = host(api.solve(gm.instance(ex["src"], ex["dst"], ex["logit"],
+                                     "cpu"), mode="pd", config=gm.SOLVER,
+                         device="cpu"))
+    ints = [f for f in INTS if not np.array_equal(res[f], cpu[f])]
+    check(not ints, f"gnn_multicut: card != CPU in {ints}")
+    for f in ("objective", "lower_bound"):
+        check(rel_close(res[f], cpu[f], CPU_REL_TOL),
+              f"gnn_multicut: card {f} {res[f]} vs CPU {cpu[f]}")
+    if DEV.type == "cuda":
+        check(launches["triangle_mp"] == phase_launches(
+                  shapes["triangle_mp"], gm.SOLVER.mp_iters) > 0,
+              f"gnn_multicut solve launched {launches}, MP phases "
+              f"{shapes['triangle_mp']}")
+    cases = shape_cases(shapes, {"triangle_mp": set(),
+                                 "cycle_intersect": set()},
+                        int(inst.u.shape[0]), gen, "gnn_multicut",
+                        timed=False)
+    out = dict(steps=len(ex["losses"]),
+               losses=[ex["losses"][0], ex["losses"][-1]],
+               acc_rama=ex["acc_rama"], acc_thr=ex["acc_thr"],
+               objective=float(res["objective"]),
+               lower_bound=float(res["lower_bound"]),
+               cpu_objective=float(cpu["objective"]),
+               cpu_lower_bound=float(cpu["lower_bound"]),
+               objective_bitwise_cpu=bool(res["objective"]
+                                          == cpu["objective"]),
+               bound_bitwise_cpu=bool(res["lower_bound"]
+                                      == cpu["lower_bound"]),
+               launches=launches, shapes=shape_record(shapes), cases=cases,
+               example_s=example_s)
+    log(f"  gnn_multicut: {out['steps']} EGNN steps, edge-BCE "
+        f"{out['losses'][0]:.4f} -> {out['losses'][1]:.4f}; agreement RAMA "
+        f"{ex['acc_rama']:.3f} vs threshold+CC {ex['acc_thr']:.3f}; solve "
+        f"launches {launches}; kernel = plain bit for bit; card vs CPU: "
+        f"labels equal, objective {out['objective']} / "
+        f"{out['cpu_objective']}, bound {out['lower_bound']} / "
+        f"{out['cpu_lower_bound']}; {example_s:.1f} s [{CARD_NAME}]")
+    return out
+
+
+def phase_gnn_recsys(rehearse: bool) -> dict:
+    """Phase 12: (a) wide-deep, (b) the registry's GNN train steps, (c)
+    GraphCast's native weather path, (d) the gnn_multicut example. Float32
+    matmuls with TF32 off (torch's default), as the CPU parity gates
+    assume. Its own generator, so the phase draws the same weights alone
+    or after the others."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 12 runs float32 matmuls with TF32 off")
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    t0 = time.perf_counter()
+    out = {"recsys": phase12_recsys(rehearse, gen)}
+    empty_cache()
+    out["gnn"] = {}
+    for aid, shape_name in GNN_CELLS:
+        out["gnn"][f"{aid}/{shape_name}"] = phase12_gnn_cell(
+            aid, shape_name, rehearse, gen)
+        empty_cache()
+    out["weather"] = phase12_weather(rehearse, gen)
+    empty_cache()
+    out["gnn_multicut"] = phase12_gnn_multicut(gen)
+    # no kernel of the port lies on (a)-(c) (each checked zero launches);
+    # (d)'s solve runs the multicut kernels
+    out["kernel_launches"] = dict(recsys=NO_KERNELS, gnn=NO_KERNELS,
+                                  weather=NO_KERNELS,
+                                  gnn_multicut=out["gnn_multicut"][
+                                      "launches"])
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 12 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -3479,7 +4040,8 @@ def main_path_cases(main: dict, gen) -> dict:
 
 def kernel_line(cases: dict, main_cases: dict, main: dict,
                 lm: dict, dense: dict, served: dict, traced: dict,
-                sharded: dict, shards: dict, moe_train: dict) -> dict:
+                sharded: dict, shards: dict, moe_train: dict,
+                gnn_recsys: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
         if name == "contract_matmul":
@@ -3538,10 +4100,12 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
         key = [top, 3] if name == "triangle_mp" else \
             [[top[0], top[1]], [top[0], top[2]]]
         head = next(c for c in main_cases[name] if c["shape"] == key)
+        gm = gnn_recsys["gnn_multicut"]
         every = (cases[name] + main_cases[name]
                  + sharded["one_rank"]["cases"][name]
                  + shards["separation"]["cases"][name]
-                 + shards["batch"]["cases"][name])
+                 + shards["batch"]["cases"][name]
+                 + gm["cases"][name])
         prof = main.get("profile", {})
         if name == "triangle_mp":
             extra = dict(
@@ -3587,6 +4151,7 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
             batch_sharded_launches={
                 S: shards["batch"][S]["launches"][name]
                 for S in P10_SHARDS},
+            gnn_multicut_launches=gm["launches"][name],
             work=head["work"],
             device_us_per_launch=prof.get("kernels", {}).get(
                 name, {}).get("device_us_per_launch"),
@@ -3666,10 +4231,14 @@ def main(argv=None) -> int:
         log("phase 11: MoE serving (llama4-scout, grok-1) and the LM train "
             "step (gemma2-9b)")
         record["moe_train"] = phase_moe_train(args.rehearse)
+        log("phase 12: the sparse substrate's families: wide-deep, the GNN "
+            "train steps, GraphCast's weather path, gnn_multicut")
+        record["gnn_recsys"] = phase_gnn_recsys(args.rehearse)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
                            record["dense"], record["serve"],
                            record["trace"], record["sharded"],
-                           record["shards"], record["moe_train"])
+                           record["shards"], record["moe_train"],
+                           record["gnn_recsys"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

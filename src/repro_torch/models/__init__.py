@@ -1,1 +1,3 @@
-"""Model families of the port: the dense decoder-only transformer."""
+"""Model families of the port: the decoder-only transformer (dense and
+MoE), the GNN family (``gnn/``) and the wide-deep recommender
+(``recsys``)."""

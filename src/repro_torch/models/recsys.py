@@ -1,0 +1,108 @@
+"""Wide & Deep recommender [arXiv:1606.07792] (port of
+``repro.models.recsys``).
+
+40 sparse categorical fields → EmbeddingBag lookups (the hot path) +
+13 dense features. Wide side: linear over per-field 1-dim embeddings +
+dense. Deep side: concat 32-dim embeddings → MLP 1024-512-256 → logit.
+
+Differences from the JAX module:
+
+- The reference looks up the fields by ``jax.vmap`` over the (F, V, D)
+  tables; here every field is one gather over the tables viewed as
+  (F·V, D), with index f·V + i (one launch instead of F).
+- The tables' gradient is dense, as the reference's is: AdamW's weight
+  decay touches every row, so a sparse gradient would compute another
+  update.
+- ``param_pspecs`` (row sharding over a model axis) has no one-card
+  counterpart.
+
+``retrieval_score`` covers the retrieval_cand shape: one query embedding
+against 10⁶ candidate item embeddings as a single matrix-vector product.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.sparse.embedding_bag import embedding_bag
+
+
+@dataclasses.dataclass(frozen=True)
+class WideDeepConfig:
+    name: str = "wide-deep"
+    n_sparse: int = 40
+    n_dense: int = 13
+    embed_dim: int = 32
+    vocab_per_field: int = 1_000_000
+    mlp_dims: tuple = (1024, 512, 256)
+    multi_hot: int = 1       # indices per field (bag size)
+    cand_dim: int = 64       # retrieval tower output dim
+
+
+def init_params(cfg: WideDeepConfig, gen: torch.Generator) -> dict:
+    """Params on ``gen``'s device: tables uniform in [-1/sqrt(D),
+    1/sqrt(D)), MLP weights normal / sqrt(fan-in), zero biases."""
+    V, Fd, D = cfg.vocab_per_field, cfg.n_sparse, cfg.embed_dim
+    dev = gen.device
+    s = 1.0 / math.sqrt(D)
+
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device=dev) \
+            .mul_(2 * s).sub_(s)
+
+    dims = (Fd * D + cfg.n_dense,) + tuple(cfg.mlp_dims) + (1,)
+    return {
+        "tables": uniform((Fd, V, D)),
+        "wide_tables": uniform((Fd, V, 1)),
+        "wide_dense": torch.randn((cfg.n_dense, 1), generator=gen,
+                                  device=dev).mul_(0.01),
+        "mlp_w": [torch.randn((a, b), generator=gen, device=dev)
+                  .div_(math.sqrt(a)) for a, b in zip(dims[:-1], dims[1:])],
+        "mlp_b": [torch.zeros((b,), device=dev) for b in dims[1:]],
+        "bias": torch.zeros((1,), device=dev),
+    }
+
+
+def _lookup(tables, flat_idx, mask):
+    """Sum-bags of every field in one gather: tables (F, V, d), flat_idx
+    (B, F, bag) = f·V + i -> (B, F, d)."""
+    Fd, V, d = tables.shape
+    return embedding_bag(tables.reshape(Fd * V, d), flat_idx, mask,
+                         mode="sum")
+
+
+def forward(cfg: WideDeepConfig, params, sparse_idx, dense_feats,
+            sparse_mask=None):
+    """sparse_idx: (B, F, bag) int32 (each below vocab_per_field);
+    dense_feats: (B, n_dense). Returns logits (B,)."""
+    B = sparse_idx.shape[0]
+    Fd, D, V = cfg.n_sparse, cfg.embed_dim, cfg.vocab_per_field
+    offs = torch.arange(Fd, dtype=torch.int64, device=sparse_idx.device) * V
+    flat = sparse_idx.long() + offs[None, :, None]
+    emb = _lookup(params["tables"], flat, sparse_mask)          # (B, F, D)
+    wide_e = _lookup(params["wide_tables"], flat, sparse_mask)  # (B, F, 1)
+
+    wide = wide_e.sum((1, 2)) + (dense_feats @ params["wide_dense"])[:, 0]
+    deep = torch.cat([emb.reshape(B, Fd * D), dense_feats], -1)
+    n = len(params["mlp_w"])
+    for i, (w, b) in enumerate(zip(params["mlp_w"], params["mlp_b"])):
+        deep = deep @ w + b
+        if i < n - 1:
+            deep = F.relu(deep)
+    return wide + deep[:, 0] + params["bias"][0]
+
+
+def loss_fn(cfg: WideDeepConfig, params, sparse_idx, dense_feats, labels,
+            sparse_mask=None):
+    """Binary cross-entropy on the logits (the reference's stable form)."""
+    logits = forward(cfg, params, sparse_idx, dense_feats, sparse_mask)
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
+def retrieval_score(query_emb, cand_embs):
+    """retrieval_cand cell: (d,) query vs (n_cand, d) candidates → scores."""
+    return cand_embs @ query_emb

@@ -2,7 +2,9 @@
 JAX package's ``train/checkpoint.py``, the same files on disk).
 
 A checkpoint of step N is ``step_N.npz``, the tree flattened to
-``/``-joined paths (dict keys, tuple and NamedTuple indices), with an
+``/``-joined paths (dict keys, list, tuple and NamedTuple indices; a None
+leaf, as graphcast's ``mesh_pos``, is an empty node and stores nothing,
+as ``jax.tree`` treats it), with an
 optional ``step_N.json`` of metadata. Each file is written to a temporary
 name and renamed (a crash mid-write never corrupts the latest snapshot);
 ``latest_step`` finds the newest; retention keeps the newest ``keep``.
@@ -43,12 +45,14 @@ def _flatten(tree, prefix=""):
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}/"))
-    else:
+    elif tree is not None:
         out[prefix[:-1]] = _host(tree)
     return out
 
 
 def _unflatten(flat: dict, template):
+    if template is None:
+        return None
     if isinstance(template, dict):
         return {k: _unflatten(
             {kk[len(k) + 1:]: vv for kk, vv in flat.items()

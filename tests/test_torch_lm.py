@@ -113,8 +113,10 @@ def test_configs_match_jax():
             assert tbase.LM_SHAPES[name].dims == shape.dims
             assert t.model_flops(tbase.LM_SHAPES[name]) == \
                 j.model_flops(shape)
-    assert set(tbase.REGISTRY) == set(LM_IDS) | {
-        "rama-multicut", "llama4-scout-17b-a16e", "grok-1-314b"}
+    # every arch of the JAX registry is registered in the port
+    assert set(tbase.REGISTRY) == set(JREGISTRY) == set(LM_IDS) | {
+        "rama-multicut", "llama4-scout-17b-a16e", "grok-1-314b", "dimenet",
+        "egnn", "mace", "graphcast", "wide-deep"}
     assert get_arch("gemma2-9b").cfg.params_count == 10_158_908_928
     # the train step is ported: one step of reduced gemma2 on the CPU
     arch = get_arch("gemma2-9b")

@@ -132,9 +132,11 @@ def test_port_imports_no_jax():
     server, delta solves, observability and the solve trace, the batch
     and registry entry points, the baselines, the roofline profile, the
     multicut arch config, the collectives, the sharded solve and the
-    local rank launcher included, and the modules that shard separation,
-    batches and the roofline profile), and chip_smoke.py's own imports,
-    load no jax and no module of the JAX package."""
+    local rank launcher included, the modules that shard separation,
+    batches and the roofline profile, the sparse substrate, the GNN and
+    recsys models, their configs and the two examples), and
+    chip_smoke.py's own imports, load no jax and no module of the JAX
+    package."""
     code = (
         "import sys, runpy\n"
         "import repro_torch.api, repro_torch.convert\n"
@@ -159,6 +161,16 @@ def test_port_imports_no_jax():
         "import repro_torch.launch.ranks, repro_torch.core.cycles\n"
         "import repro_torch.core.solver, repro_torch.roofline.solver\n"
         "import repro_torch.roofline.analysis, repro_torch.serve.engine\n"
+        "import repro_torch.sparse, repro_torch.sparse.spmm\n"
+        "import repro_torch.sparse.embedding_bag, repro_torch.sparse.sampler\n"
+        "import repro_torch.models.gnn.common, repro_torch.models.gnn.egnn\n"
+        "import repro_torch.models.gnn.dimenet, repro_torch.models.gnn.mace\n"
+        "import repro_torch.models.gnn.graphcast, repro_torch.models.recsys\n"
+        "import repro_torch.configs.dimenet, repro_torch.configs.egnn\n"
+        "import repro_torch.configs.mace, repro_torch.configs.graphcast\n"
+        "import repro_torch.configs.wide_deep\n"
+        "import repro_torch.examples.gnn_multicut\n"
+        "import repro_torch.examples.weather_graphcast\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -197,6 +209,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 11" in out.stdout and "grok-1-314b decode at context" \
         in out.stdout and "params bit-equal True" in out.stdout
     assert "labels equal True" in out.stdout
+    assert "phase 12" in out.stdout and "wide-deep train_batch" in \
+        out.stdout and "graphcast on minibatch_lg" in out.stdout and \
+        "gnn_multicut: 60 EGNN steps" in out.stdout
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                               cwd=ROOT, env=env, capture_output=True,

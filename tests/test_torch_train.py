@@ -567,8 +567,8 @@ def test_lm_batch_is_deterministic_and_structured():
 
 def test_launch_train_runs_on_the_cpu(tmp_path):
     """``launch/train.py --device cpu`` trains a reduced MoE arch with
-    checkpoints; a second run resumes from them; the recsys family raises
-    naming ROADMAP item 15.4."""
+    checkpoints; a second run resumes from them; a GNN arch exits as the
+    JAX driver does (the recsys branch: tests/test_torch_recsys.py)."""
     argv = ["--arch", "llama4-scout-17b-a16e", "--reduce", "16", "--steps",
             "4", "--batch", "2", "--seq", "17", "--ckpt-dir",
             str(tmp_path), "--ckpt-every", "2", "--grad-accum", "2",
@@ -578,8 +578,8 @@ def test_launch_train_runs_on_the_cpu(tmp_path):
     assert all(np.isfinite(h["loss"]) for h in hist)
     again = tlaunch.main(argv[:5] + ["6"] + argv[6:])
     assert [h["step"] for h in again] == [4, 5]
-    with pytest.raises(NotImplementedError, match="15.4"):
-        tlaunch.main(["--arch", "wide-deep", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="use examples/ for gnn training"):
+        tlaunch.main(["--arch", "egnn", "--device", "cpu"])
 
 
 def test_launch_train_as_a_script():
