@@ -235,6 +235,26 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    (labels and integers exactly, objective and bound within 1e-5
    relative), ``triangle_mp`` held against its plain version at the
    shapes this solve gave it.
+13. The owner-partitioned DimeNet block over ``torch.distributed`` and
+   the four multicut examples, float32 with TF32 off. (a)
+   ``models/gnn/partitioned.py`` at DimeNet's width d = 128 and
+   ``minibatch_lg``'s 212 992 edges, T = 425 984 triplets from a seed
+   (90 % valid), halo E/D a peer and T a shard (nothing dropped): D = 1
+   in this process and D = 2 over two gloo ranks on the card
+   (``make_debug_mesh(1, 2)``; NCCL refuses two ranks on one GPU), each
+   within max |Δ| / max |ref| <= 1e-5 of the dense reference on the
+   card, of each other and of the CPU's block; a second plan whose halo
+   cap (E/32 a peer) drops triplets, against the dense reference over
+   the triplets it kept. Prints the plan's host seconds, the block's ms
+   a rank (median of 3 after the counted first call), each rank's
+   ``all_to_all`` bytes (``count_collective_bytes``: D·H·d·4) and peak
+   memory. (b) ``repro_torch.examples`` quickstart,
+   image_segmentation, serve_tiles and distributed_multicut (on a
+   one-rank NCCL group) through their ``main`` with their asserts,
+   counters zeroed just before each and read just after: ``triangle_mp``
+   launched in each, ``cycle_intersect`` in the two whose solves take
+   the sparse path; both kernels held against their plain versions at
+   the shapes each example gave them.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -251,7 +271,8 @@ with 20×20 and 12×12 grids and a small ``dist_pd`` cell, phase 10 on the
 20×20 grid and 16×16 batches, phase 11 on width-64 copies of its
 archs at S = 128 (MoE) and 48 (training), phase 12 at 1 000 rows a
 field, batches of 16-64, 2-layer GNNs of width 16-32 on 512 padded
-nodes and edges, the weather example's config), with each
+nodes and edges, the weather example's config), phase 13's block at
+E 2 048 and d 16 and the four examples at their own sizes, with each
 kernel wrapper running its plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
@@ -269,6 +290,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -4025,6 +4047,302 @@ def phase_gnn_recsys(rehearse: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the owner-partitioned DimeNet block over torch.distributed and
+# the four multicut examples
+# ---------------------------------------------------------------------------
+
+# (a) (edges E, width d): DimeNet's width (configs/dimenet.py) at
+# minibatch_lg's edge count (configs/base.py), T = 2E triplets (tri_factor
+# 2), 90 % valid
+P13 = {"card": (212_992, 128), "rehearse": (2048, 16)}
+P13_SHARDS = 2
+P13_DROP = 16           # the drop plan's halo: E / (D * 16) slots a peer
+# max |Δ| / max |ref| of the block's output: float32 (TF32 off), the
+# index_add's atomics and the matmuls sum in other orders than the dense
+# reference's and the CPU's
+P13_REL_TOL = 1e-5
+P13_EXAMPLES = ("quickstart", "image_segmentation", "serve_tiles",
+                "distributed_multicut")
+# examples whose solves take the sparse path (above 256 padded nodes):
+# cycle_intersect must launch there; the others' solves are dense
+P13_SPARSE = ("image_segmentation", "distributed_multicut")
+
+# one rank of (a): D = 2 over gloo on the parent's card; each plan's
+# first call is counted (the warm-up), then three are timed
+P13_RANK = """
+import os, time
+import numpy as np, torch
+import torch.distributed as dist
+from repro_torch.core import dist as td
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.ranks import process_group
+from repro_torch.models.gnn import partitioned as tp
+DEV, DIR = torch.device(%(dev)r), %(dir)r
+def sync():
+    if DEV.type == "cuda":
+        torch.cuda.synchronize()
+data = np.load(os.path.join(DIR, "inputs.npz"))
+out = {}
+with process_group("gloo") as (rank, world):
+    w = {k: torch.from_numpy(data[k]).to(DEV) for k in ("w_tri", "w_upd")}
+    mesh = make_debug_mesh(1, world, device_type=DEV.type)
+    block = tp.make_triplet_block(mesh)
+    for name in ("full", "drop"):
+        p = np.load(os.path.join(DIR, name + ".npz"))
+        plan = tp.PartitionedTriplets(
+            *(torch.from_numpy(p[f]).to(DEV)
+              for f in tp.PartitionedTriplets._fields[:5]),
+            e_local=int(p["e_local"]), halo=int(p["halo"]))
+        el = plan.e_local
+        m = torch.from_numpy(data["m"][rank * el:(rank + 1) * el]).to(DEV)
+        sync()
+        if DEV.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with td.count_collective_bytes() as rec:
+            got = block(m, plan, w)
+        sync()
+        walls = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            block(m, plan, w)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        out[name + "/out"] = got.cpu().numpy()
+        out[name + "/bytes"] = np.array([rec["bytes"], rec["calls"]])
+        out[name + "/ms"] = np.array(walls) * 1e3
+        out[name + "/peak"] = np.array(torch.cuda.max_memory_allocated()
+                                       if DEV.type == "cuda" else 0)
+    del block, mesh
+out["group_destroyed"] = np.array(not dist.is_initialized())
+np.savez(os.path.join(DIR, f"rank{rank}.npz"), **out)
+"""
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|, on ``ref``'s device."""
+    got = got.to(ref.device)
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def kept_triplets(plan) -> tuple[np.ndarray, np.ndarray]:
+    """The global (tri_kj, tri_ji) edge ids of the triplets a plan kept,
+    read back through its local and halo slots."""
+    send_idx = plan.send_idx.cpu().numpy()
+    t_kj, t_ji = plan.tri_kj.cpu().numpy(), plan.tri_ji.cpu().numpy()
+    t_mask = plan.tri_mask.cpu().numpy()
+    el, H = plan.e_local, send_idx.shape[2]
+    kjs, jis = [], []
+    for d in range(t_kj.shape[0]):
+        slot, ji = t_kj[d][t_mask[d]], t_ji[d][t_mask[d]]
+        h = slot - el
+        src = np.where(slot < el, d, h // H)
+        kj = np.where(slot < el, slot,
+                      send_idx[src, d, np.where(slot < el, 0, h % H)])
+        kjs.append(kj + src * el)
+        jis.append(ji + d * el)
+    return np.concatenate(kjs), np.concatenate(jis)
+
+
+def plan_npz(path, plan):
+    np.savez(path, e_local=plan.e_local, halo=plan.halo,
+             **{f: getattr(plan, f).cpu().numpy()
+                for f in plan._fields[:5]})
+
+
+def phase13_partitioned(rehearse: bool) -> dict:
+    """(a) The owner-partitioned block at DimeNet's width on
+    minibatch_lg's edge count: D = 1 in this process and D = 2 over two
+    gloo ranks on the card, each against the dense reference on the card,
+    against each other and against the CPU; a plan whose halo cap drops
+    triplets against the dense reference over the triplets it kept."""
+    from repro_torch.models.gnn import partitioned as tp
+    E, d = P13["rehearse" if rehearse else "card"]
+    T, D = 2 * E, P13_SHARDS
+    rng = np.random.default_rng(13)
+    tri = (rng.integers(0, E, T).astype(np.int32),
+           rng.integers(0, E, T).astype(np.int32), rng.random(T) < 0.9)
+    m = rng.standard_normal((E, d), dtype=np.float32)
+    w = {k: (rng.standard_normal((d, d), dtype=np.float32)
+             / np.float32(np.sqrt(d))) for k in ("w_tri", "w_upd")}
+    t0 = time.perf_counter()
+    full = tp.build_plan(*tri, E, D, E // D, T, device="cpu")
+    plan_s = time.perf_counter() - t0
+    drop = tp.build_plan(*tri, E, D, E // (D * P13_DROP), T, device="cpu")
+    n_valid = int(tri[2].sum())
+    n_full, n_drop = int(full.tri_mask.sum()), int(drop.tri_mask.sum())
+    check(n_full == n_valid and 0 < n_drop < n_valid,
+          f"plans kept {n_full} and {n_drop} of {n_valid} triplets")
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "inputs.npz"), m=m, **w)
+        plan_npz(os.path.join(tmp, "full.npz"), full)
+        plan_npz(os.path.join(tmp, "drop.npz"), drop)
+        t0 = time.perf_counter()
+        ranks.spawn(P13_RANK % dict(dev=str(DEV), dir=tmp), world=D,
+                    store=os.path.join(tmp, "store"), env=env, timeout=600)
+        spawn_s = time.perf_counter() - t0
+        runs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(D)]
+
+    md = torch.from_numpy(m).to(DEV)
+    wd = {k: torch.from_numpy(v).to(DEV) for k, v in w.items()}
+    tri_d = [torch.from_numpy(a).to(DEV) for a in tri]
+    dense = tp.dense_triplet_block(md, *tri_d, wd)
+    one_plan = tp.build_plan(*tri, E, 1, E, T, device=DEV)
+    block = tp.make_triplet_block()
+    peak_reset()
+    with dist_mod.count_collective_bytes() as rec:
+        one = block(md, one_plan, wd)
+    sync()
+    one_peak = peak_bytes()
+    one_s, one_walls = timed_call(lambda: block(md, one_plan, wd), 3)
+    cpu = tp.make_triplet_block()(
+        torch.from_numpy(m), tp.build_plan(*tri, E, 1, E, T, device="cpu"),
+        {k: torch.from_numpy(v) for k, v in w.items()})
+    two = torch.from_numpy(np.concatenate([r["full/out"] for r in runs]))
+    two_drop = torch.from_numpy(np.concatenate([r["drop/out"]
+                                                for r in runs]))
+    kj, ji = kept_triplets(drop)
+    dense_drop = tp.dense_triplet_block(
+        md, torch.from_numpy(kj).to(DEV), torch.from_numpy(ji).to(DEV),
+        torch.ones(len(kj), dtype=torch.bool, device=DEV), wd)
+    errs = {"D1 vs dense": rel_err(one, dense),
+            "D2 vs dense": rel_err(two, dense),
+            "D2 vs D1": rel_err(two, one),
+            "D1 vs CPU": rel_err(one.cpu(), cpu),
+            "D2 vs CPU": rel_err(two, cpu),
+            "D2 drop plan vs dense over its kept triplets":
+                rel_err(two_drop, dense_drop)}
+    for what, e in errs.items():
+        check(np.isfinite(e) and e <= P13_REL_TOL,
+              f"partitioned block {what}: max |diff| / max |ref| {e} > "
+              f"{P13_REL_TOL}")
+    check(rec["bytes"] == 0, f"D = 1 sent {rec['bytes']} collective bytes")
+    H = E // D
+    for r, run in enumerate(runs):
+        check(bool(run["group_destroyed"]),
+              f"rank {r} exited with its process group alive")
+        check(run["full/bytes"].tolist() == [D * H * d * 4, 1],
+              f"rank {r} sent {run['full/bytes'].tolist()} (bytes, calls) "
+              f"in the block; want [{D * H * d * 4}, 1]")
+    out = dict(
+        edges=E, width=d, triplets=T, valid=n_valid, shards=D, halo=H,
+        drop_halo=E // (D * P13_DROP), drop_kept=n_drop, plan_host_s=plan_s,
+        spawn_s=spawn_s, rel_err=errs, tolerance=P13_REL_TOL,
+        one_rank=dict(ms=one_s * 1e3, walls_ms=[x * 1e3 for x in one_walls],
+                      peak_bytes=one_peak),
+        ranks=[dict(ms=float(np.median(run["full/ms"])),
+                    walls_ms=run["full/ms"].tolist(),
+                    drop_ms=float(np.median(run["drop/ms"])),
+                    all_to_all_bytes=int(run["full/bytes"][0]),
+                    drop_all_to_all_bytes=int(run["drop/bytes"][0]),
+                    peak_bytes=int(run["full/peak"]),
+                    drop_peak_bytes=int(run["drop/peak"]))
+               for run in runs])
+    log(f"  partitioned block, d {d}, E {E}, T {T} ({n_valid} valid): plan "
+        f"{plan_s:.3f} s on the host; D = 1 {out['one_rank']['ms']:.3f} ms "
+        f"(median of 3), peak {one_peak / 2**20:.1f} MiB; D = 2 over gloo "
+        f"ranks {[round(r['ms'], 3) for r in out['ranks']]} ms, all_to_all "
+        f"{[r['all_to_all_bytes'] for r in out['ranks']]} B, peak "
+        f"{[round(r['peak_bytes'] / 2**20, 1) for r in out['ranks']]} MiB a "
+        f"rank; spawn {spawn_s:.1f} s [{CARD_NAME}]")
+    log(f"  drop plan (halo {out['drop_halo']} a peer) kept {n_drop} of "
+        f"{n_valid}: D = 2 {[round(r['drop_ms'], 3) for r in out['ranks']]}"
+        f" ms; max |diff| / max |ref| {errs} (gate {P13_REL_TOL}) "
+        f"[{CARD_NAME}]")
+    return out
+
+
+def example_edges(name: str, ex: dict) -> int:
+    """The padded edge count of an example's largest solve (the size of
+    the cost array its kernel cases are drawn over)."""
+    if name in ("quickstart", "image_segmentation"):
+        return ex["instance"].num_edges
+    if name == "serve_tiles":
+        return max(t.inst.num_edges for t in ex["tickets"])
+    from repro_torch.examples import distributed_multicut as dm
+    return dm.PAD_EDGES
+
+
+def phase13_examples(gen) -> dict:
+    """(b) The four multicut examples through their ``main`` on the card,
+    with their asserts, counters zeroed just before each and read just
+    after: triangle_mp launched in each, cycle_intersect in each whose
+    solves take the sparse path; distributed_multicut on a one-rank NCCL
+    group; each kernel held against its plain version at the shapes each
+    example gave it."""
+    import importlib
+    out = {}
+    for name in P13_EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        argv = ["--device", str(DEV)]
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            if name == "distributed_multicut":
+                with one_rank_group("phase13") as group:
+                    ex = mod.main(argv, group=group)
+            else:
+                ex = mod.main(argv)
+        except AssertionError as e:
+            raise SmokeFailure(f"{name}: {e}") from e
+        sync()
+        secs = time.perf_counter() - t0
+        launches, shapes = all_launches(), path_shapes()
+        check(launches["flash_attention"] == 0
+              and launches["contract_matmul"] == 0,
+              f"{name} launched the attention or contraction kernel")
+        check(DEV.type != "cuda" or launches["triangle_mp"] > 0,
+              f"{name} did not launch triangle_mp: {launches}")
+        check(DEV.type != "cuda" or name not in P13_SPARSE
+              or launches["cycle_intersect"] > 0,
+              f"{name}'s sparse solves did not launch cycle_intersect: "
+              f"{launches}")
+        cases = shape_cases(shapes, {"triangle_mp": set(),
+                                     "cycle_intersect": set()},
+                            example_edges(name, ex), gen, name, timed=False)
+        out[name] = dict(seconds=secs, launches=launches,
+                         shapes=shape_record(shapes), cases=cases)
+        if name == "distributed_multicut":
+            out[name].update(lower_bound=ex["lower_bound"],
+                             objective=ex["objective"],
+                             single_device_objective=ex[
+                                 "single_device_objective"],
+                             quotient_nodes=ex["quotient_nodes"])
+        elif name == "serve_tiles":
+            out[name].update(first_calls=ex["first_calls"],
+                             first_call_bound=ex["first_call_bound"],
+                             wall_s=ex["wall_s"])
+        log(f"  example {name}: asserts passed in {secs:.1f} s; launches "
+            f"triangle_mp {launches['triangle_mp']}, cycle_intersect "
+            f"{launches['cycle_intersect']}; each kernel equal to its plain "
+            f"version at its {sum(len(c) for c in cases.values())} shapes "
+            f"[{CARD_NAME}]")
+    return out
+
+
+def phase_partitioned_examples(rehearse: bool) -> dict:
+    """Phase 13: (a) the owner-partitioned block, (b) the four multicut
+    examples. Float32 matmuls with TF32 off, as the block's gate
+    assumes. Its own generator, so the phase draws the same cases alone
+    or after the others."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 13 runs float32 matmuls with TF32 off")
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    t0 = time.perf_counter()
+    out = {"partitioned": phase13_partitioned(rehearse)}
+    empty_cache()
+    out["examples"] = phase13_examples(gen)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -4041,7 +4359,7 @@ def main_path_cases(main: dict, gen) -> dict:
 def kernel_line(cases: dict, main_cases: dict, main: dict,
                 lm: dict, dense: dict, served: dict, traced: dict,
                 sharded: dict, shards: dict, moe_train: dict,
-                gnn_recsys: dict) -> dict:
+                gnn_recsys: dict, examples: dict) -> dict:
     rows = []
     for name, meta in KERNELS.items():
         if name == "contract_matmul":
@@ -4105,7 +4423,9 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
                  + sharded["one_rank"]["cases"][name]
                  + shards["separation"]["cases"][name]
                  + shards["batch"]["cases"][name]
-                 + gm["cases"][name])
+                 + gm["cases"][name]
+                 + [c for ex in examples.values()
+                    for c in ex["cases"][name]])
         prof = main.get("profile", {})
         if name == "triangle_mp":
             extra = dict(
@@ -4152,6 +4472,8 @@ def kernel_line(cases: dict, main_cases: dict, main: dict,
                 S: shards["batch"][S]["launches"][name]
                 for S in P10_SHARDS},
             gnn_multicut_launches=gm["launches"][name],
+            examples_launches={ex: r["launches"][name]
+                               for ex, r in examples.items()},
             work=head["work"],
             device_us_per_launch=prof.get("kernels", {}).get(
                 name, {}).get("device_us_per_launch"),
@@ -4234,11 +4556,16 @@ def main(argv=None) -> int:
         log("phase 12: the sparse substrate's families: wide-deep, the GNN "
             "train steps, GraphCast's weather path, gnn_multicut")
         record["gnn_recsys"] = phase_gnn_recsys(args.rehearse)
+        log("phase 13: the owner-partitioned DimeNet block over "
+            "torch.distributed, the four multicut examples")
+        record["partitioned_examples"] = phase_partitioned_examples(
+            args.rehearse)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
                            record["dense"], record["serve"],
                            record["trace"], record["sharded"],
                            record["shards"], record["moe_train"],
-                           record["gnn_recsys"])
+                           record["gnn_recsys"],
+                           record["partitioned_examples"]["examples"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

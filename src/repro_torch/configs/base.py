@@ -16,10 +16,11 @@ and an ``init_opt_state(params, state_dtype=arch.opt_state_dtype)``
 state, and updates both in place. A GNN or recsys arch's
 ``input_specs(shape)`` gives the (shape, dtype) of each step input, in
 the order of the step's positional arguments (the JAX registry's
-``abstract_inputs``). The shardings, ``for_mesh`` (which sets a pod
-mesh's bf16 GNN compute dtype; the port's GNN trunks compute in float32)
-and the abstract (``eval_shape``) state of the JAX registry have no
-counterpart on one card.
+``abstract_inputs``). The production meshes exist
+(``repro_torch.launch.mesh``); the per-arch sharding plans, ``for_mesh``
+(which sets a pod mesh's bf16 GNN compute dtype; the port's GNN trunks
+compute in float32) and the abstract (``eval_shape``) state of the JAX
+registry have no counterpart yet.
 """
 from __future__ import annotations
 

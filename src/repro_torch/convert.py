@@ -88,6 +88,7 @@ _GNN_SPECS = {
                   "g2m_node": _MLP, "layers": _GNET, "m2g_edge": _MLP,
                   "m2g_node": _MLP, "grid_dec": _MLP, "mesh_pos": None},
     "graphcast_processor": {"enc": _MLP, "layers": _GNET, "dec": _MLP},
+    "partitioned": {"w_tri": None, "w_upd": None},
 }
 _RECSYS_SPEC = {"tables": None, "wide_tables": None,
                      "wide_dense": None, "mlp_w": (None,),
@@ -114,7 +115,8 @@ def _by_name(tree, spec, dev: torch.device):
 def gnn_params_from_numpy(tree, kind: str, device=None) -> dict:
     """The port's GNN params from a JAX ``init_params`` tree of ``kind``
     (``egnn``, ``dimenet``, ``mace``, ``graphcast`` for the native
-    weather model, ``graphcast_processor``). A registry tree
+    weather model, ``graphcast_processor``, ``partitioned`` for the
+    owner-partitioned block's ``{"w_tri", "w_upd"}``). A registry tree
     (``GNNArch.init_params``: ``{"trunk", "head"?}``) takes the arch's
     kind; its graphcast trunk is the processor."""
     dev = resolve_device(device)

@@ -4,10 +4,10 @@
 The reference is single-controller: one ``shard_map`` over a mesh of local
 devices. The port is SPMD: every rank of a process group runs the same
 Python loop on its own part, and the reference's ``all_gather``,
-``pmin``, ``pmax`` and ``psum`` become the collectives below (NCCL on
-cards, gloo on the CPU). Every collective takes an explicit group;
-``None`` means no process group, a group of one, whose collectives are
-identities.
+``pmin``, ``pmax``, ``psum`` and ``all_to_all`` become the collectives
+below (NCCL on cards, gloo on the CPU). Every collective takes an
+explicit group; ``None`` means no process group, a group of one, whose
+collectives are identities.
 
 *Edge-range state sharding* (``SolverConfig.state_shards``,
 :mod:`repro_torch.core.sharded`): rank s of the state group owns the
@@ -53,8 +53,9 @@ from repro_torch.core.graph import MulticutInstance, make_instance, \
 
 __all__ = [
     "STATE_AXIS", "STATE_BLOCKS", "all_gather", "all_max", "all_min",
-    "all_sum_int", "blocked_sum", "broadcast", "combine_node_best",
-    "edge_range_start", "gather_edge_field", "group_rank", "group_size",
+    "all_sum_int", "all_to_all", "blocked_sum", "broadcast",
+    "combine_node_best", "edge_range_start", "gather_edge_field",
+    "group_rank", "group_size",
     "local_pd_round", "make_dist_pd_round", "merge_blocks_quotient",
     "count_collective_bytes", "partition_instance", "resolve_batch_shards",
     "resolve_separation_shards", "resolve_state_shards", "shard_devices",
@@ -177,6 +178,24 @@ def all_sum_int(x: torch.Tensor, group) -> torch.Tensor:
         raise TypeError("all_sum_int: floats go through blocked_sum, whose "
                         "order does not depend on the shard count")
     return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Exchange rows: ``x`` is ``(S, ...)``, row p goes to rank p of the
+    group, and row r of the result is what rank r sent this rank (the
+    reference's ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``);
+    exact for every dtype (no arithmetic)."""
+    if group is None:
+        return x
+    S = group_size(group)
+    if x.shape[0] != S:
+        raise ValueError(f"all_to_all: {x.shape[0]} rows for a group of "
+                         f"{S} ranks")
+    _count_sent(x, group)
+    w = _wire(x, group)
+    out = torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=group)
+    return _unwire(out, x)
 
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:

@@ -134,9 +134,9 @@ def test_port_imports_no_jax():
     multicut arch config, the collectives, the sharded solve and the
     local rank launcher included, the modules that shard separation,
     batches and the roofline profile, the sparse substrate, the GNN and
-    recsys models, their configs and the two examples), and
-    chip_smoke.py's own imports, load no jax and no module of the JAX
-    package."""
+    recsys models, their configs, the owner-partitioned block, the meshes
+    and the six examples), and chip_smoke.py's own imports, load no jax
+    and no module of the JAX package."""
     code = (
         "import sys, runpy\n"
         "import repro_torch.api, repro_torch.convert\n"
@@ -171,6 +171,11 @@ def test_port_imports_no_jax():
         "import repro_torch.configs.wide_deep\n"
         "import repro_torch.examples.gnn_multicut\n"
         "import repro_torch.examples.weather_graphcast\n"
+        "import repro_torch.models.gnn.partitioned, repro_torch.launch.mesh\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.image_segmentation\n"
+        "import repro_torch.examples.serve_tiles\n"
+        "import repro_torch.examples.distributed_multicut\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -212,6 +217,11 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 12" in out.stdout and "wide-deep train_batch" in \
         out.stdout and "graphcast on minibatch_lg" in out.stdout and \
         "gnn_multicut: 60 EGNN steps" in out.stdout
+    assert "phase 13" in out.stdout and "partitioned block, d 16" in \
+        out.stdout and "drop plan (halo" in out.stdout
+    for name in ("quickstart", "image_segmentation", "serve_tiles",
+                 "distributed_multicut"):
+        assert f"example {name}: asserts passed" in out.stdout, name
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                               cwd=ROOT, env=env, capture_output=True,
