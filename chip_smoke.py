@@ -255,6 +255,22 @@ Phases, in order; any failure exits nonzero with no ``ok`` line:
    launched in each, ``cycle_intersect`` in the two whose solves take
    the sparse path; both kernels held against their plain versions at
    the shapes each example gave them.
+14. The sharding plans (``repro_torch.sharding``, the registry's
+   ``state_shardings``/``input_shardings``). (a) The pod dry-run
+   (``repro_torch.launch.dryrun``) of one cell a family on the host over
+   a ``fake`` group of 256 ranks, in a child process while (b) runs:
+   granite-34b train_4k, grok-1-314b decode_32k (the expert fallback),
+   graphcast minibatch_lg, wide-deep train_batch, rama-multicut dist_pd;
+   each record printed, any failing cell fails the phase. (b) gemma2-9b
+   at 2 layers of full width, prefill (1, 8192), its float32 master
+   params placed as DTensors by its plan on a one-rank NCCL mesh
+   (``make_debug_mesh(1, 1)``): the logits bit-equal to the plain
+   one-card prefill, ``flash_attention`` launched once a layer through
+   ``local_map``; the dry-run of the same cell (a one-rank fake group)
+   gives argument bytes equal to the live local bytes, matmul flops
+   equal to ``FlopCounterMode`` on the same step through the plain
+   attention and all flops equal to the dry-run's counter there; its
+   predicted peak is printed beside the measured one, as a ratio.
 
 Prints the ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Writes the
@@ -272,7 +288,10 @@ with 20×20 and 12×12 grids and a small ``dist_pd`` cell, phase 10 on the
 archs at S = 128 (MoE) and 48 (training), phase 12 at 1 000 rows a
 field, batches of 16-64, 2-layer GNNs of width 16-32 on 512 padded
 nodes and edges, the weather example's config), phase 13's block at
-E 2 048 and d 16 and the four examples at their own sizes, with each
+E 2 048 and d 16 and the four examples at their own sizes, phase 14's
+dry-run of four cheaper full-width cells (grok-1-314b long_500k, egnn
+full_graph_sm, wide-deep serve_p99, rama-multicut dist_pd) and its
+prefill at width 64 and S = 128 on a one-rank gloo group, with each
 kernel wrapper running its plain version, to
 find wrong paths and shapes before a run on the card; it prints no result
 and exits 3.
@@ -4343,6 +4362,215 @@ def phase_partitioned_examples(rehearse: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the sharding plans, the pod dry-run on the host, and a sharded
+# prefill on the card
+# ---------------------------------------------------------------------------
+
+# (a)'s cells, one a family, on the host over a fake group of 256 ranks;
+# (b)'s gemma2-9b at 2 layers, prefill (1, S), on a one-rank mesh
+P14 = {"card": dict(S=8192, cfg=dict(n_layers=2), cells=[
+           ("granite-34b", "train_4k"), ("grok-1-314b", "decode_32k"),
+           ("graphcast", "minibatch_lg"), ("wide-deep", "train_batch"),
+           ("rama-multicut", "dist_pd")]),
+       "rehearse": dict(S=128, cfg=dict(
+           n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+           d_ff=128, vocab=256, local_window=16), cells=[
+           ("grok-1-314b", "long_500k"), ("egnn", "full_graph_sm"),
+           ("wide-deep", "serve_p99"), ("rama-multicut", "dist_pd")])}
+P14_HOST = """
+import dataclasses, json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ShapeCell, get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+spec = json.loads(sys.argv[1])
+out = {"cells": [], "failures": []}
+t0 = time.perf_counter()
+with dryrun.fake_group(256):
+    mesh = dryrun.production_mesh()
+    for aid, sname in spec["cells"]:
+        try:
+            out["cells"].append(dryrun.dryrun_cell(aid, sname, mesh,
+                                                   verbose=False))
+        except Exception as e:
+            out["failures"].append([aid, sname, repr(e)[:400]])
+    del mesh
+out["cells_s"] = time.perf_counter() - t0
+with dryrun.fake_group(1):
+    mesh = make_debug_mesh(1, 1, device_type="cpu")
+    arch = get_arch("gemma2-9b")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
+                                                             **spec["cfg"]))
+    shape = ShapeCell("prefill_card", "prefill",
+                      dict(seq_len=spec["S"], global_batch=1))
+    out["card_cell"] = dryrun.dryrun_cell("gemma2-9b", "prefill_card", mesh,
+                                          arch=arch, shape=shape,
+                                          verbose=False)
+    del mesh
+print(json.dumps(out))
+"""
+
+
+def phase14_host(key: str):
+    """(a) started: the dry-run of one cell a family, and of (b)'s cell on
+    a one-rank mesh, in a child process on the host (it holds a fake
+    group of its own, and runs while (b) uses the card)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    spec = {k: P14[key][k] for k in ("S", "cfg", "cells")}
+    return subprocess.Popen([sys.executable, "-c", P14_HOST,
+                             json.dumps(spec)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), time.perf_counter()
+
+
+def phase14_card(key: str) -> dict:
+    """(b) gemma2-9b at 2 layers of full width, prefill (1, S), its
+    float32 master params placed as DTensors by its plan on a one-rank
+    mesh of the card: the logits against the plain one-card prefill, the
+    flash kernel launched through ``local_map``, the live argument bytes,
+    and the same step through the plain attention counted by
+    ``FlopCounterMode`` and the dry-run's counter, with its peak memory."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.roofline.solver import LocalWorkCounter
+    from repro_torch.sharding import clear_dtensor_caches, distribute, \
+        local_bytes
+    S = P14[key]["S"]
+    arch = get_arch("gemma2-9b")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, **P14[key]["cfg"]))
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    out = {}
+    with one_rank_group("phase14"):
+        mesh = make_debug_mesh(1, 1, device_type=DEV.type)
+        a = arch.for_mesh(mesh)
+        shape = ShapeCell("prefill_card", "prefill",
+                          dict(seq_len=S, global_batch=1))
+        params = tfm.init_params(a.cfg, gen, DEV, masters=True)
+        tokens = torch.randint(0, a.cfg.vocab, (1, S), generator=gen,
+                               device=DEV, dtype=torch.int32)
+        step = a.step_fn(shape)
+        with torch.no_grad():
+            plain = step(params, tokens)
+        ss, ish = a.state_shardings(mesh, shape), a.input_shardings(mesh,
+                                                                    shape)
+
+        def place(tree, sh):
+            if isinstance(tree, dict):
+                return {k: place(v, sh[k]) for k, v in tree.items()}
+            return distribute(tree, sh)
+
+        dparams = place(params, ss["params"])
+        dtok = distribute(tokens, ish["tokens"])
+        out["argument_bytes_live"] = local_bytes(dparams) + local_bytes(dtok)
+        reset_counters()
+        t0 = time.perf_counter()
+        with torch.no_grad(), implicit_replication():
+            got = step(dparams, dtok)
+        sync()
+        out["sharded_prefill_s"] = time.perf_counter() - t0
+        out["flash_launches"] = all_launches()["flash_attention"]
+        check(out["flash_launches"] == a.cfg.n_layers or DEV.type != "cuda",
+              f"sharded prefill launched flash_attention "
+              f"{out['flash_launches']} times for {a.cfg.n_layers} layers")
+        gl = got.to_local()
+        out["bit_equal"] = bool(torch.equal(gl, plain))
+        out["logits"] = logits_diff(gl, plain)
+        check(out["bit_equal"], f"sharded prefill logits differ from the "
+              f"plain prefill's: {out['logits']}")
+        del got, gl, plain
+        empty_cache()
+        ref = a.step_fn(shape, backend="reference")
+        with torch.no_grad(), implicit_replication():
+            ref(dparams, dtok)                  # DTensor's caches warm
+            with FlopCounterMode(display=False) as fc:
+                ref(dparams, dtok)
+            with LocalWorkCounter(external=[dparams, dtok]) as wc:
+                ref(dparams, dtok)
+            sync()
+            empty_cache()
+            resident = torch.cuda.memory_allocated() \
+                if DEV.type == "cuda" else 0
+            peak_reset()
+            ref(dparams, dtok)
+            sync()
+        out["flop_counter_flops"] = int(fc.get_total_flops())
+        out["counter_flops"] = int(wc.flops)
+        out["step_peak_bytes"] = peak_bytes() - resident \
+            + out["argument_bytes_live"]
+        del dparams, dtok, params, mesh, a, ss, ish
+        clear_dtensor_caches()
+        import gc
+        gc.collect()
+    return out
+
+
+def phase_plans(rehearse: bool) -> dict:
+    """Phase 14: (a) the pod dry-run of one cell a family on the host (a
+    fake group of 256 ranks), (b) gemma2-9b's sharded prefill on the card
+    held against the plain prefill and against the dry-run of the same
+    cell."""
+    key = "rehearse" if rehearse else "card"
+    t0 = time.perf_counter()
+    proc, started = phase14_host(key)
+    try:
+        out = {"card": phase14_card(key)}
+    finally:
+        stdout, stderr = proc.communicate(timeout=900)
+    host = time.perf_counter() - started
+    check(proc.returncode == 0, f"phase 14 (a) dry-run exited "
+          f"{proc.returncode}: {stderr[-2000:]}")
+    dry = json.loads(stdout.strip().splitlines()[-1])
+    check(not dry["failures"], f"phase 14 (a) cells failed: "
+          f"{dry['failures']}")
+    for rec in dry["cells"]:
+        log(f"  dry-run [{rec['mesh']}] {rec['arch']}/{rec['shape']}: "
+            f"trace {rec['compile_s']} s on the host, {rec['flops']:.4g} "
+            f"flops, {rec['bytes_accessed']:.4g} B, args "
+            f"{rec['argument_size_bytes']} B, out "
+            f"{rec['output_size_bytes']} B, temp {rec['temp_size_bytes']} "
+            f"B, peak {rec['peak_bytes_per_device']} B, collectives "
+            f"{rec['collectives']['total']} B a rank ({rec['trace']}) "
+            f"[{CARD_NAME}]")
+    card, cell = out["card"], dry["card_cell"]
+    log(f"  (a) {len(dry['cells'])} cells traced in {dry['cells_s']:.1f} s, "
+        f"0 failures; the child ran {host:.1f} s [{CARD_NAME}]")
+    log(f"  (b) gemma2-9b {P14[key]['cfg'].get('n_layers')} layers, prefill"
+        f" (1, {P14[key]['S']}) with DTensor params by its plan: logits "
+        f"bit-equal {card['bit_equal']} to the plain prefill "
+        f"({card['logits']}), flash_attention launched "
+        f"{card['flash_launches']} times through local_map, "
+        f"{card['sharded_prefill_s']:.3f} s [{CARD_NAME}]")
+    check(cell["argument_size_bytes"] == card["argument_bytes_live"],
+          f"dry-run argument bytes {cell['argument_size_bytes']} != live "
+          f"{card['argument_bytes_live']}")
+    check(cell["matmul_flops"] == card["flop_counter_flops"],
+          f"dry-run matmul flops {cell['matmul_flops']} != FlopCounterMode "
+          f"{card['flop_counter_flops']}")
+    check(cell["flops"] == card["counter_flops"],
+          f"dry-run flops {cell['flops']} != the counter on the card "
+          f"{card['counter_flops']}")
+    ratio = cell["peak_bytes_per_device"] / max(card["step_peak_bytes"], 1)
+    log(f"  (b) dry-run of the same cell: argument bytes "
+        f"{cell['argument_size_bytes']} = live {card['argument_bytes_live']};"
+        f" flops {cell['matmul_flops']:.6g} = FlopCounterMode "
+        f"{card['flop_counter_flops']:.6g} (all ops {cell['flops']:.6g} = "
+        f"{card['counter_flops']:.6g}); predicted peak "
+        f"{cell['peak_bytes_per_device']} B vs measured "
+        f"{card['step_peak_bytes']} B (ratio {ratio:.3f}, reported, not a "
+        f"gate) [{CARD_NAME}]")
+    out.update(dry=dry, host_s=host, peak_ratio=ratio,
+               phase_s=time.perf_counter() - t0)
+    log(f"  phase 14 took {out['phase_s']:.1f} s [{CARD_NAME}]")
+    return out
+
+
 def main_path_cases(main: dict, gen) -> dict:
     """Hold each kernel against its plain version at every shape the main
     path gave it (fresh data of those shapes)."""
@@ -4560,6 +4788,9 @@ def main(argv=None) -> int:
             "torch.distributed, the four multicut examples")
         record["partitioned_examples"] = phase_partitioned_examples(
             args.rehearse)
+        log("phase 14: the sharding plans: the pod dry-run on the host, a "
+            "sharded prefill on the card")
+        record["plans"] = phase_plans(args.rehearse)
         line = kernel_line(cases, main_cases, main_rec, record["lm"],
                            record["dense"], record["serve"],
                            record["trace"], record["sharded"],

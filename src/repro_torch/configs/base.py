@@ -15,12 +15,20 @@ The train step takes master params (``init_params(..., masters=True)``)
 and an ``init_opt_state(params, state_dtype=arch.opt_state_dtype)``
 state, and updates both in place. A GNN or recsys arch's
 ``input_specs(shape)`` gives the (shape, dtype) of each step input, in
-the order of the step's positional arguments (the JAX registry's
-``abstract_inputs``). The production meshes exist
-(``repro_torch.launch.mesh``); the per-arch sharding plans, ``for_mesh``
-(which sets a pod mesh's bf16 GNN compute dtype; the port's GNN trunks
-compute in float32) and the abstract (``eval_shape``) state of the JAX
-registry have no counterpart yet.
+the order of the step's positional arguments; ``abstract_inputs`` gives
+them as fake tensors.
+
+Each family also carries the reference's plans for the production meshes
+(``repro_torch.launch.mesh``): ``for_mesh(mesh)`` adapts the config to a
+mesh (an LM's activation plan, MoE dispatch groups and expert fallback;
+a GNN's graph-partition axes and bf16 compute dtype), and
+``state_shardings(mesh, shape)`` / ``input_shardings(mesh, shape)`` give
+a :class:`repro_torch.sharding.Sharding` for every state and input leaf.
+The abstract state (``abstract_params``, ``abstract_opt``,
+``abstract_cache``) is made under ``FakeTensorMode``: the shapes and
+dtypes the init functions make, with no memory and no random draws.
+Placed as DTensors, state and inputs run the same step functions on a
+mesh (``repro_torch.launch.dryrun`` traces every cell so).
 """
 from __future__ import annotations
 
@@ -33,10 +41,16 @@ from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tfm
 from repro_torch.models.gnn import dimenet as dn, egnn as eg, mace as mc
 from repro_torch.models.gnn import graphcast as gc
-from repro_torch.models.gnn.common import GraphBatch
-from repro_torch.sparse.segment_ops import scatter_sum
+from repro_torch.models.gnn.common import GraphBatch, scatter_rows, \
+    set_act_axes
+from repro_torch.sharding import (
+    P, Sharding, axis_sizes, dp_axes, filter_axes, is_dtensor, named,
+    prod_axes,
+)
 from repro_torch.train.loop import value_and_grad
-from repro_torch.train.optimizer import OptimizerConfig, apply_update
+from repro_torch.train.optimizer import (
+    OptimizerConfig, OptState, apply_update, init_opt_state,
+)
 from repro_torch.tree import tree_map
 
 
@@ -50,6 +64,43 @@ class ShapeCell:
 class InputSpec(NamedTuple):
     shape: tuple
     dtype: torch.dtype
+
+
+def fake_mode():
+    """The active ``FakeTensorMode``'s context (a no-op), or a new one:
+    abstract state is made under it, shapes and dtypes with no memory."""
+    import contextlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    if any(isinstance(m, FakeTensorMode)
+           for m in _get_current_dispatch_mode_stack()):
+        return contextlib.nullcontext()
+    return FakeTensorMode()
+
+
+def _abstract(specs: dict) -> dict:
+    """Fake tensors of a dict of :class:`InputSpec`."""
+    with fake_mode():
+        return {k: torch.empty(v.shape, dtype=v.dtype)
+                for k, v in specs.items()}
+
+
+def _split_microbatches(x, k: int) -> list:
+    """``k`` microbatches of a batch x (B, ...): the reference's
+    consecutive slices of the global batch for a plain tensor; for a
+    DTensor, consecutive slices of each rank's local rows, so every
+    microbatch is sharded as the batch is. The microbatches partition the
+    rows either way, so their mean loss and mean gradients are the whole
+    batch's (in another order of adds)."""
+    if not is_dtensor(x):
+        return list(x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:])))
+    from torch.distributed.tensor import DTensor
+    loc = x.to_local()
+    m = loc.shape[0] // k
+    assert m * k == loc.shape[0], (loc.shape, k)
+    return [DTensor.from_local(loc[i * m:(i + 1) * m], x.device_mesh,
+                               x.placements, run_check=False)
+            for i in range(k)]
 
 
 REGISTRY: dict[str, object] = {}
@@ -91,6 +142,138 @@ class LMArch:
     def shapes(self):
         return LM_SHAPES
 
+    def for_mesh(self, mesh) -> "LMArch":
+        """Adapt the config's mesh-axis references to ``mesh``: drop the
+        pod axis on a single pod, set the MoE dispatch group count to the
+        data-parallel degree, fall back from expert to ffn sharding when
+        n_experts does not divide the model axis. The reference's
+        per-decode-shape ``cache_pspecs`` have no counterpart: the cache is
+        placed by :meth:`kv_pspec` and updated in place, which keeps its
+        placements."""
+        cfg = self.cfg
+        updates = {}
+        if cfg.act_sharding is not None:
+            updates["act_sharding"] = tuple(
+                filter_axes(mesh, P(*cfg.act_sharding)))
+        if cfg.moe:
+            updates["moe_groups"] = prod_axes(mesh, dp_axes(mesh))
+            updates["moe_shard_experts"] = (
+                cfg.n_experts % axis_sizes(mesh).get("model", 1) == 0)
+        return dataclasses.replace(self, **(
+            {"cfg": dataclasses.replace(cfg, **updates)} if updates else {}))
+
+    # --- abstract state: fake tensors, no memory, no RNG draws ----------
+    def abstract_params(self):
+        """The training layout (every leaf in ``param_dtype``, as the
+        reference's params), which every dry-run cell holds."""
+        with fake_mode():
+            return tfm.init_params(self.cfg, torch.Generator(), "cpu",
+                                   masters=True)
+
+    def abstract_opt(self, params=None):
+        """``init_opt_state`` of ``params`` (DTensors keep their
+        placements), by default of :meth:`abstract_params`."""
+        with fake_mode():
+            return init_opt_state(
+                self.abstract_params() if params is None else params,
+                state_dtype=self.opt_state_dtype)
+
+    def abstract_cache(self, shape: ShapeCell):
+        d = shape.dims
+        with fake_mode():
+            return tfm.init_kv_cache(self.cfg, d["global_batch"],
+                                     d["seq_len"], "cpu")
+
+    def input_specs(self, shape: ShapeCell) -> dict:
+        d = shape.dims
+        B, S = d["global_batch"], d["seq_len"]
+        tok = InputSpec((B, S), torch.int32)
+        if shape.kind == "train":
+            return {"tokens": tok, "targets": tok}
+        if shape.kind == "prefill":
+            return {"tokens": tok}
+        if shape.kind == "decode":
+            return {"token": InputSpec((B,), torch.int32),
+                    "cache_len": InputSpec((), torch.int32)}
+        raise ValueError(shape.kind)
+
+    def abstract_inputs(self, shape: ShapeCell) -> dict:
+        return _abstract(self.input_specs(shape))
+
+    # --- shardings ------------------------------------------------------
+    def param_pspecs(self):
+        return tfm.param_pspecs(self.cfg)
+
+    def microbatches(self, global_batch: int, mesh=None) -> tuple:
+        """(microbatches, rows of each on a rank, data shards) of a train
+        step over ``global_batch`` rows on ``mesh`` (None: one device).
+        ``grad_accum`` when it divides the batch, else 1, as the
+        reference; on a mesh the batch shards over the data axes when
+        they divide it (:meth:`input_shardings`), and the count is lowered
+        until it divides each rank's rows."""
+        ga = self.grad_accum if self.grad_accum > 1 \
+            and global_batch % self.grad_accum == 0 else 1
+        n = 1 if mesh is None else prod_axes(mesh, dp_axes(mesh))
+        shards = n if global_batch % n == 0 else 1
+        rows = global_batch // shards
+        while rows % ga:
+            ga -= 1
+        return ga, rows // ga, shards
+
+    def state_shardings(self, mesh, shape: ShapeCell) -> dict:
+        pp = filter_axes(mesh, self.param_pspecs())
+        # MoE expert fallback: when n_experts does not divide the model
+        # axis (grok-1: 8 experts on a 16-way axis), keep experts whole
+        # and run plain tensor parallelism over the expert ffn dims
+        if self.cfg.moe and \
+                self.cfg.n_experts % axis_sizes(mesh).get("model", 1):
+            dax = dp_axes(mesh) or None
+            pp["layers"]["w_gate"] = P(None, None, dax, "model")
+            pp["layers"]["w_up"] = P(None, None, dax, "model")
+            pp["layers"]["w_down"] = P(None, None, "model", dax)
+        out = {"params": named(mesh, pp)}
+        if shape.kind == "train":
+            out["opt"] = OptState(step=Sharding(mesh, P()),
+                                  mu=named(mesh, pp), nu=named(mesh, pp))
+        if shape.kind == "decode":
+            kv = Sharding(mesh, self.kv_pspec(mesh, shape))
+            out["cache"] = {"k": kv, "v": kv}
+        return out
+
+    def kv_pspec(self, mesh, shape: ShapeCell) -> P:
+        """KV-cache plan (L, B, Hkv, S, hd): batch over the data axes and
+        heads over the model axis when they divide; an axis that cannot
+        be used there shards the SEQUENCE instead (decode-time context
+        parallelism: the cache update writes one row in place and the
+        attention reduces across the sequence shards)."""
+        dp = dp_axes(mesh)
+        msize = axis_sizes(mesh)["model"]
+        B = shape.dims["global_batch"]
+        S = shape.dims["seq_len"]
+        bshard = dp if B % prod_axes(mesh, dp) == 0 else None
+        hshard = "model" if self.cfg.n_kv_heads % msize == 0 else None
+        seq_axes = []
+        if bshard is None:
+            seq_axes.extend(dp)
+        if hshard is None:
+            seq_axes.append("model")
+        seq_axes = tuple(a for a in seq_axes
+                         if S % prod_axes(mesh, tuple(seq_axes)) == 0) \
+            or None
+        if seq_axes and S % prod_axes(mesh, seq_axes) != 0:
+            seq_axes = None
+        return P(None, bshard, hshard, seq_axes, None)
+
+    def input_shardings(self, mesh, shape: ShapeCell) -> dict:
+        dp = dp_axes(mesh)
+        B = shape.dims["global_batch"]
+        bshard = dp if B % prod_axes(mesh, dp) == 0 else None
+        if shape.kind in ("train", "prefill"):
+            return {k: Sharding(mesh, P(bshard, None))
+                    for k in self.input_specs(shape)}
+        return {"token": Sharding(mesh, P(bshard)),
+                "cache_len": Sharding(mesh, P())}
+
     def step_fn(self, shape: ShapeCell, backend: str = "cuda") -> Callable:
         """The step of ``shape``, attention through ``backend``:
         ``train_step(params, opt_state, tokens, targets)`` -> (params,
@@ -119,22 +302,25 @@ class LMArch:
         def train_step(params, opt_state, tokens, targets):
             B = tokens.shape[0]
             if ga > 1 and B % ga == 0:
-                tk = tokens.reshape(ga, B // ga, -1)
-                tg = targets.reshape(ga, B // ga, -1)
+                k = self.microbatches(B, tokens.device_mesh
+                                      if is_dtensor(tokens) else None)[0]
+                tk = _split_microbatches(tokens, k)
+                tg = _split_microbatches(targets, k)
                 # accumulate in f32 unless the arch runs a reduced-
                 # precision optimizer (grok-1's bf16 posture)
                 acc_dt = self.opt_state_dtype or torch.float32
-                l = torch.zeros((), device=tokens.device)
-                grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=acc_dt, device=p.device), params)
-                for i in range(ga):
-                    li, gi = value_and_grad(loss, params, tk[i], tg[i])
+                l = 0.0
+                grads = tree_map(lambda p: torch.zeros_like(
+                    p, dtype=acc_dt, memory_format=torch.contiguous_format),
+                    params)
+                for t, g in zip(tk, tg):
+                    li, gi = value_and_grad(loss, params, t, g)
                     l = l + li
                     grads = tree_map(lambda a, g: a + g.to(acc_dt), grads,
                                      gi)
                     del gi
-                l = l / ga
-                grads = tree_map(lambda g, p: (g / ga).to(p.dtype), grads,
+                l = l / k
+                grads = tree_map(lambda g, p: (g / k).to(p.dtype), grads,
                                  params)
             else:
                 l, grads = value_and_grad(loss, params, tokens, targets)
@@ -188,10 +374,20 @@ class GNNArch:
     opt: OptimizerConfig = OptimizerConfig()
     family: str = "gnn"
     tri_factor: int = 2          # triplets per edge cap (dimenet)
+    shard_axes: tuple | None = None   # leading-dim mesh axes (per mesh)
+    compute_dtype: Any = None         # bf16 on a mesh (set per mesh)
 
     @property
     def shapes(self):
         return GNN_SHAPES
+
+    def for_mesh(self, mesh) -> "GNNArch":
+        """Graph-partition data parallelism: node and edge hidden states
+        shard their leading dim over the whole mesh, and the trunk computes
+        in bf16 (halving the per-layer all-gathered node matrices that
+        dominate the full-graph cells' memory)."""
+        return dataclasses.replace(self, shard_axes=tuple(axis_sizes(mesh)),
+                                   compute_dtype=torch.bfloat16)
 
     def _dims(self, shape: ShapeCell):
         d = dict(shape.dims)
@@ -232,6 +428,52 @@ class GNNArch:
         if d["task"] == "node_cls":
             out["head"] = torch.randn((d_repr, d["n_classes"]), generator=gen,
                                       device=gen.device).mul_(0.02)
+        return out
+
+    def abstract_params(self, shape: ShapeCell) -> dict:
+        with fake_mode():
+            return self.init_params(shape, torch.Generator())
+
+    def abstract_opt(self, shape: ShapeCell, params=None):
+        with fake_mode():
+            return init_opt_state(self.abstract_params(shape)
+                                  if params is None else params)
+
+    def abstract_inputs(self, shape: ShapeCell) -> dict:
+        return _abstract(self.input_specs(shape))
+
+    def state_shardings(self, mesh, shape: ShapeCell) -> dict:
+        """GNN params are small: replicated, and the optimizer state
+        likewise."""
+        with fake_mode():
+            rep = tree_map(lambda _: Sharding(mesh, P()),
+                           self.abstract_params(shape))
+        return {"params": rep,
+                "opt": OptState(step=Sharding(mesh, P()), mu=rep, nu=rep)}
+
+    def input_shardings(self, mesh, shape: ShapeCell) -> dict:
+        """Node and edge arrays shard their leading dim over every mesh
+        axis when it divides (graph-partition data parallelism), else over
+        the data axes when they divide, else stay whole."""
+        dp = dp_axes(mesh)
+        ndp = prod_axes(mesh, dp)
+        all_ax = tuple(axis_sizes(mesh))
+        nall = prod_axes(mesh, all_ax)
+
+        def lead(n):
+            if n % nall == 0:
+                return all_ax
+            if n % ndp == 0:
+                return dp
+            return None
+
+        out = {}
+        for k, v in self.input_specs(shape).items():
+            if not v.shape:
+                out[k] = Sharding(mesh, P())
+            else:
+                out[k] = Sharding(mesh, P(lead(v.shape[0]),
+                                          *([None] * (len(v.shape) - 1))))
         return out
 
     def _node_repr_fn(self, shape: ShapeCell):
@@ -284,11 +526,15 @@ class GNNArch:
         cfg2 = self._shape_cfg(shape)
         node_repr = self._node_repr_fn(shape)
 
+        compute_dtype = self.compute_dtype
+
         def build_graph(b):
             nodes = b["nodes"]
             pos = b.get("positions")
             if pos is None:
                 pos = torch.zeros((nodes.shape[0], 3), device=nodes.device)
+            if compute_dtype is not None:
+                nodes = nodes.to(compute_dtype)
             return GraphBatch(
                 nodes=nodes, edges_src=b["edges_src"],
                 edges_dst=b["edges_dst"],
@@ -298,7 +544,10 @@ class GNNArch:
                 graph_ids=b["graph_ids"], n_graphs=G,
                 positions=pos, labels=b.get("labels_f"))
 
+        shard_axes = self.shard_axes
+
         def loss(params, b):
+            set_act_axes(shard_axes)   # trace-time switch; None = off
             g = build_graph(b)
             if d["task"] == "energy":
                 if kind == "dimenet":
@@ -311,11 +560,11 @@ class GNNArch:
                 else:
                     h = node_repr(params["trunk"], g, b)
                     ne = h.mean(-1) * g.node_mask.to(h.dtype)
-                    e = scatter_sum(ne, b["graph_ids"], G)
+                    e = scatter_rows(ne, b["graph_ids"], G)
                 return torch.mean((e - b["labels_f"]) ** 2)
             # node classification with the trainable head
             h = node_repr(params["trunk"], g, b)
-            logits = h @ params["head"]
+            logits = h.to(params["head"].dtype) @ params["head"]
             logz = torch.logsumexp(logits, -1)
             tgt = logits.gather(-1, b["labels_i"].long()[:, None])[:, 0]
             lm = b["label_mask"].float()
@@ -384,6 +633,45 @@ class RecsysArch:
     @property
     def shapes(self):
         return RECSYS_SHAPES
+
+    def abstract_params(self) -> dict:
+        with fake_mode():
+            return rs.init_params(self.cfg, torch.Generator())
+
+    def abstract_opt(self, params=None):
+        with fake_mode():
+            return init_opt_state(self.abstract_params() if params is None
+                                  else params)
+
+    def abstract_inputs(self, shape: ShapeCell) -> dict:
+        return _abstract(self.input_specs(shape))
+
+    def param_pspecs(self):
+        return rs.param_pspecs(self.cfg)
+
+    def state_shardings(self, mesh, shape: ShapeCell) -> dict:
+        pp = named(mesh, self.param_pspecs())
+        out = {"params": pp}
+        if shape.kind == "train":
+            out["opt"] = OptState(step=Sharding(mesh, P()), mu=pp, nu=pp)
+        return out
+
+    def input_shardings(self, mesh, shape: ShapeCell) -> dict:
+        """The batch over the data axes when they divide it; the
+        retrieval candidates over every mesh axis (the candidate set is
+        padded to a multiple of 512 for it), the query whole."""
+        dp = dp_axes(mesh)
+        out = {}
+        for k, v in self.input_specs(shape).items():
+            if shape.kind == "retrieval":
+                out[k] = Sharding(mesh, P(tuple(axis_sizes(mesh)), None)
+                                  if k == "cands" else P(None))
+            else:
+                B = v.shape[0]
+                bshard = dp if B % prod_axes(mesh, dp) == 0 else None
+                out[k] = Sharding(mesh, P(bshard,
+                                          *([None] * (len(v.shape) - 1))))
+        return out
 
     def input_specs(self, shape: ShapeCell) -> dict:
         d = shape.dims

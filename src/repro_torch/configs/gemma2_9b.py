@@ -22,6 +22,7 @@ CONFIG = TransformerConfig(
     rope_theta=10000.0,
     dtype=torch.bfloat16,
     use_flash=True,
+    act_sharding=(("pod", "data"), None, "model"),
 )
 
 ARCH = register(LMArch(id="gemma2-9b", cfg=CONFIG, grad_accum=8))

@@ -16,6 +16,7 @@ CONFIG = TransformerConfig(
     rope_theta=10000.0,
     dtype=torch.bfloat16,
     use_flash=True,
+    act_sharding=(("pod", "data"), None, "model"),
 )
 
 ARCH = register(LMArch(id="granite-34b", cfg=CONFIG, grad_accum=16))

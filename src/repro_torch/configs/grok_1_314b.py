@@ -27,6 +27,7 @@ CONFIG = TransformerConfig(
     param_dtype=torch.bfloat16,
     remat=True,
     use_flash=True,
+    act_sharding=(("pod", "data"), None, "model"),
 )
 
 ARCH = register(LMArch(id="grok-1-314b", cfg=CONFIG,

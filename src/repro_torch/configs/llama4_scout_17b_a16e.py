@@ -23,6 +23,7 @@ CONFIG = TransformerConfig(
     dtype=torch.bfloat16,
     remat=True,
     use_flash=True,
+    act_sharding=(("pod", "data"), None, "model"),
 )
 
 ARCH = register(LMArch(id="llama4-scout-17b-a16e", cfg=CONFIG,

@@ -16,6 +16,7 @@ CONFIG = TransformerConfig(
     rope_theta=10000.0,
     dtype=torch.bfloat16,
     use_flash=True,
+    act_sharding=(("pod", "data"), None, "model"),
 )
 
 ARCH = register(LMArch(id="phi3-mini-3.8b", cfg=CONFIG))

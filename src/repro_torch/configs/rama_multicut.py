@@ -9,9 +9,12 @@ Cells:
   dist_pd — the domain-decomposed round over the default
       ``torch.distributed`` group (one block per rank; one rank holds
       every block without a group), ``core/dist.py``'s
-      ``make_dist_pd_round``. The reference's ``input_shardings``/
-      ``state_shardings`` have no counterpart: each rank computes its own
-      blocks of the replicated inputs.
+      ``make_dist_pd_round``.
+
+Plans (the reference's): the solver and MP cells run replicated (plain
+tensors, the same on every rank); dist_pd's block arrays shard their
+block axis over every mesh axis (:meth:`RamaArch.dist_inputs`: one block
+a rank) and its boundary costs stay whole. No state.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.configs.base import ShapeCell, register
 from repro_torch.core.graph import MulticutInstance
 from repro_torch.core.solver import _dual_round, _primal_round, \
     resolve_intersect, resolve_mp
+from repro_torch.sharding import P, Sharding, axis_sizes, prod_axes
 
 RAMA_SHAPES = {
     "pd_round_sm": ShapeCell("pd_round_sm", "solver",
@@ -83,6 +87,34 @@ class RamaArch:
                     "node_valid": meta((nb, Nb), b),
                     "boundary_cost": meta((d["boundary_edges"],), f32)}
         raise ValueError(shape.kind)
+
+    def dist_inputs(self, mesh, shape: ShapeCell) -> dict:
+        """dist_pd's inputs on ``mesh`` as meta tensors: one block per
+        rank of the mesh."""
+        d = shape.dims
+        nb = prod_axes(mesh, tuple(axis_sizes(mesh)))
+        Eb, Nb = d["blk_edges"], d["blk_nodes"]
+        f32, i32, b = torch.float32, torch.int32, torch.bool
+
+        def meta(n, dtype):
+            return torch.empty(n, dtype=dtype, device="meta")
+        return {"u": meta((nb, Eb), i32), "v": meta((nb, Eb), i32),
+                "cost": meta((nb, Eb), f32),
+                "edge_valid": meta((nb, Eb), b),
+                "node_valid": meta((nb, Nb), b),
+                "boundary_cost": meta((d["boundary_edges"],), f32)}
+
+    def state_shardings(self, mesh, shape: ShapeCell) -> dict:
+        return {}
+
+    def input_shardings(self, mesh, shape: ShapeCell) -> dict:
+        if shape.kind == "dist":
+            axes = tuple(axis_sizes(mesh))
+            return {k: Sharding(mesh, P(None) if k == "boundary_cost"
+                                else P(axes, None))
+                    for k in self.dist_inputs(mesh, shape)}
+        return {k: Sharding(mesh, P(*([None] * v.dim())))
+                for k, v in self.abstract_inputs(shape).items()}
 
     def step_fn(self, shape: ShapeCell) -> Callable:
         """The cell's step as a plain tensor function: ``pd_round(u, v,

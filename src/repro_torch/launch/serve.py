@@ -37,9 +37,10 @@ from repro_torch.models import transformer as tfm
 def _reduced_lm(cfg: tfm.TransformerConfig, factor: int):
     """Width/depth-reduced copy of an LM config (the JAX
     ``launch/train.py::_reduced_lm``): MoE keeps at most 4 experts;
-    ``factor <= 1`` is full size."""
+    ``factor <= 1`` is full size. Both drop the activation plan (one
+    card), as the JAX function does."""
     if factor <= 1:
-        return cfg
+        return dataclasses.replace(cfg, act_sharding=None)
     return dataclasses.replace(
         cfg,
         n_layers=max(2, cfg.n_layers // factor),
@@ -50,7 +51,7 @@ def _reduced_lm(cfg: tfm.TransformerConfig, factor: int):
         d_ff=max(128, cfg.d_ff // factor),
         vocab=max(256, cfg.vocab // (factor * 8)),
         n_experts=min(cfg.n_experts, 4) if cfg.moe else 0,
-        use_flash=False)
+        act_sharding=None, use_flash=False)
 
 
 def _sync(device: torch.device):

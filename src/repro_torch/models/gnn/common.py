@@ -18,9 +18,17 @@ Differences from the JAX module:
   on ``device``.
 - ``layer_remat`` is ``torch.utils.checkpoint`` (non-reentrant): the
   backward holds one layer's working set, as ``jax.checkpoint`` does.
-- ``constrain``, ``constrain_tree`` and ``set_act_axes`` are GSPMD
-  sharding hints for pod meshes; one card has no counterpart, so the
-  models here carry no such calls.
+- Graph-partition data parallelism on a mesh: ``set_act_axes`` names
+  the mesh axes that split node and edge hidden states along their
+  leading dim, and the models call ``constrain`` on them at layer
+  boundaries (``jax.lax.with_sharding_constraint`` there, a DTensor
+  redistribute to ``Shard(0)`` here; without it the 2.4M x 512 node
+  matrix of ogb_products would be whole on every rank). On DTensors
+  :func:`take` and :func:`segment_sum_masked` run under ``local_map``:
+  a gather reads the whole (all-gathered) source at each rank's own
+  indices, a scatter sums each rank's own messages into a whole-size
+  partial result that ``constrain`` reduce-scatters. Plain tensors pass
+  through all of them untouched.
 - ``jax.lax.scan`` over stacked layers becomes a Python loop over the
   layer list in every model.
 """
@@ -32,10 +40,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.sharding import P, constrain as sh_constrain, is_dtensor, \
+    placements, run_local
 from repro_torch.sparse.segment_ops import scatter_sum
+from repro_torch.tree import tree_map
 
 
 class GraphBatch(NamedTuple):
@@ -85,16 +97,61 @@ def layer_remat(fn):
     return run
 
 
+# ---------------------------------------------------------------------------
+# Activation sharding (graph-partition data parallelism on a mesh)
+# ---------------------------------------------------------------------------
+
+_ACT_AXES = None
+
+
+def set_act_axes(axes):
+    """The mesh axes that split hidden states' leading dim (None: off);
+    read by :func:`constrain` at trace time, as the reference's switch."""
+    global _ACT_AXES
+    _ACT_AXES = tuple(axes) if axes is not None else None
+
+
+def constrain(x):
+    """A DTensor x redistributed to its leading dim over the active axes
+    (``set_act_axes``); anything else unchanged."""
+    if _ACT_AXES is None or x is None or not is_dtensor(x):
+        return x
+    return sh_constrain(x, P(_ACT_AXES, *([None] * (x.dim() - 1))))
+
+
+def constrain_tree(t):
+    return tree_map(constrain, t)
+
+
 def take(x, idx):
     """Rows ``x[idx]`` (ids in range by construction: padded ids point at
-    real rows, masks zero their messages)."""
-    return x.index_select(0, idx)
+    real rows, masks zero their messages). DTensors: each rank gathers
+    its own indices from the whole of x."""
+    if not is_dtensor(idx):
+        return x.index_select(0, idx)
+    mesh = idx.device_mesh
+    pl = list(idx.placements)
+    return run_local(lambda xl, il: xl.index_select(0, il), (x, idx),
+                     (placements(mesh, P()), pl), pl, mesh)
+
+
+def scatter_rows(values, ids, num_segments: int):
+    """:func:`scatter_sum` of rows; DTensors: each rank sums its own
+    entries into a whole-size result, partial over the axes that split
+    them (reduced by the next :func:`constrain` or op that needs it)."""
+    if not is_dtensor(values):
+        return scatter_sum(values, ids, num_segments)
+    mesh = values.device_mesh
+    pl = list(values.placements)
+    out = [Partial() if isinstance(p, Shard) else p for p in pl]
+    return run_local(lambda vl, il: scatter_sum(vl, il, num_segments),
+                     (values, ids), (pl, pl), out, mesh)
 
 
 def segment_sum_masked(values, ids, mask, num_segments: int):
     m = mask.to(values.dtype)
     values = values * (m[:, None] if values.dim() > 1 else m)
-    return scatter_sum(values, ids, num_segments)
+    return scatter_rows(values, ids, num_segments)
 
 
 # ---------------------------------------------------------------------------

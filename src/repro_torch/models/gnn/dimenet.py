@@ -18,9 +18,9 @@ import math
 import torch
 
 from repro_torch.models.gnn.common import (
-    GraphBatch, layer_remat, mlp_apply, mlp_init, take,
+    GraphBatch, constrain, layer_remat, mlp_apply, mlp_init, scatter_rows,
+    take,
 )
-from repro_torch.sparse.segment_ops import scatter_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,30 +117,36 @@ def _trunk(cfg: DimeNetConfig, params, g: GraphBatch, tri_kj, tri_ji,
     emask = g.edge_mask[:, None]
 
     def one_block(bp, m, energy_acc):
-        x_kj = take(mlp_apply(bp["msg_kj"], m, final_act=True), tri_kj)
+        x_kj = constrain(take(mlp_apply(bp["msg_kj"], m, final_act=True),
+                              tri_kj))
         a = sbf @ bp["w_sbf"].to(sbf.dtype)                 # (T, B)
         tri_msg = _bilinear(a, bp["w_bil"].to(a.dtype), x_kj)
         tri_msg = tri_msg * tmask.to(tri_msg.dtype)
-        agg = scatter_sum(tri_msg, tri_ji, E)
+        # constrained: a scatter over split triplets is otherwise a whole
+        # (E, d) partial sum on every rank
+        agg = constrain(scatter_rows(tri_msg, tri_ji, E))
         dt = m.dtype
         m = m + mlp_apply(bp["update"],
                           mlp_apply(bp["msg_ji"], m, final_act=True)
                           + agg.to(dt))
         m = (m * rbf_d).to(dt)      # re-modulate by radial envelope
         e_contrib = mlp_apply(bp["out"], m)
-        node_e = scatter_sum(e_contrib * emask.to(e_contrib.dtype), dst, N)
-        return m, energy_acc + node_e.float().sum(-1) / cfg.d_hidden
+        node_e = scatter_rows(e_contrib * emask.to(e_contrib.dtype), dst,
+                              N)
+        return constrain(m), energy_acc + node_e.float().sum(-1) \
+            / cfg.d_hidden
 
     one_block = layer_remat(one_block)
     energy_acc = torch.zeros((N,), dtype=torch.float32, device=m.device)
+    m = constrain(m)
     for bp in params["blocks"]:
         m, energy_acc = one_block(bp, m, energy_acc)
     return m, energy_acc
 
 
 def _node_sum(m, g: GraphBatch):
-    return scatter_sum(m * g.edge_mask[:, None].to(m.dtype), g.edges_dst,
-                       g.nodes.shape[0])
+    return scatter_rows(m * g.edge_mask[:, None].to(m.dtype), g.edges_dst,
+                        g.nodes.shape[0])
 
 
 def node_repr(cfg: DimeNetConfig, params, g: GraphBatch, tri_kj, tri_ji,
@@ -156,7 +162,7 @@ def forward(cfg: DimeNetConfig, params, g: GraphBatch, tri_kj, tri_ji,
     node_e = mlp_apply(params["readout"], _node_sum(m, g))[:, 0] \
         + energy_acc
     node_e = node_e * g.node_mask.to(node_e.dtype)
-    return scatter_sum(node_e, g.graph_ids, g.n_graphs)
+    return scatter_rows(node_e, g.graph_ids, g.n_graphs)
 
 
 def loss_fn(cfg: DimeNetConfig, params, g: GraphBatch, tri_kj, tri_ji,

@@ -14,9 +14,9 @@ import dataclasses
 import torch
 
 from repro_torch.models.gnn.common import (
-    GraphBatch, layer_remat, mlp_apply, mlp_init, segment_sum_masked, take,
+    GraphBatch, constrain, layer_remat, mlp_apply, mlp_init, scatter_rows,
+    segment_sum_masked, take,
 )
-from repro_torch.sparse.segment_ops import scatter_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,14 +61,15 @@ def forward(cfg: EGNNConfig, params, g: GraphBatch):
         agg = segment_sum_masked(m, dst, em, N)
         h = (h + mlp_apply(lp["phi_h"],
                            torch.cat([h, agg], -1))).to(h.dtype)
-        return h, x
+        return constrain(h), constrain(x)
 
     one_layer = layer_remat(one_layer)
+    h, x = constrain(h), constrain(x)
     for lp in params["layers"]:
         h, x = one_layer(lp, h, x)
     node_e = mlp_apply(params["readout"], h)[:, 0]
     node_e = node_e * g.node_mask.to(node_e.dtype)
-    energy = scatter_sum(node_e, g.graph_ids, g.n_graphs)
+    energy = scatter_rows(node_e, g.graph_ids, g.n_graphs)
     return energy, h, x
 
 

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.gnn.common import (
-    icosphere, layer_norm, layer_remat, mlp_apply, mlp_init, take,
+    constrain, icosphere, layer_norm, layer_remat, mlp_apply, mlp_init,
+    scatter_rows, take,
 )
 from repro_torch.sparse.segment_ops import scatter_sum
 
@@ -206,12 +207,14 @@ def processor_node_repr(cfg: GraphCastConfig, params, nodes, src, dst,
         e_new = e + mlp_apply(lp["edge"], msg_in)
         if em is not None:
             e_new = e_new * em
-        agg = scatter_sum(e_new, dst, N)
+        agg = scatter_rows(e_new, dst, N)
         h_new = layer_norm(h + mlp_apply(lp["node"],
                                          torch.cat([h, agg], -1)))
-        return h_new.to(h.dtype), layer_norm(e_new).to(e.dtype)
+        return (constrain(h_new.to(h.dtype)),
+                constrain(layer_norm(e_new).to(e.dtype)))
 
     one_layer = layer_remat(one_layer)
+    h, e = constrain(h), constrain(e)
     for lp in params["layers"]:
         h, e = one_layer(lp, h, e)
     return mlp_apply(params["dec"], h)

@@ -13,14 +13,15 @@ weights.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.models.gnn.common import (
-    GraphBatch, layer_remat, mlp_apply, mlp_init, take,
+    GraphBatch, constrain, layer_remat, mlp_apply, mlp_init, scatter_rows,
+    take,
 )
 from repro_torch.models.gnn.dimenet import radial_basis
-from repro_torch.sparse.segment_ops import scatter_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +45,26 @@ def _symtraceless(M):
     return S - tr * eye / 3.0
 
 
+def _promoted(*xs):
+    """``xs`` in their common dtype, as ``jnp`` promotes mixed operands
+    (a bf16 trunk meets the float32 Levi-Civita tensor and float32
+    products: the result is float32, as the reference's)."""
+    dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    return [x.to(dt) for x in xs]
+
+
+def _einsum(eq, *ops):
+    return torch.einsum(eq, *_promoted(*ops))
+
+
 def _cross(u, v):
-    return torch.linalg.cross(u, v, dim=-1)
+    return torch.linalg.cross(*_promoted(u, v), dim=-1)
 
 
 def _eps(like):
-    """The Levi-Civita tensor (3, 3, 3) in ``like``'s dtype and device."""
-    e = torch.zeros((3, 3, 3), dtype=like.dtype, device=like.device)
+    """The Levi-Civita tensor (3, 3, 3), float32 as the reference's, on
+    ``like``'s device."""
+    e = torch.zeros((3, 3, 3), dtype=torch.float32, device=like.device)
     for (i, j, k, s) in [(0, 1, 2, 1), (1, 2, 0, 1), (2, 0, 1, 1),
                          (0, 2, 1, -1), (2, 1, 0, -1), (1, 0, 2, -1)]:
         e[i, j, k] = float(s)
@@ -82,16 +96,16 @@ def pairwise_products(x, y):
         out[2].append(_symtraceless(outer))
     # 1 x 2 : matvec and ε-contraction
     if 1 in x and 2 in y:
-        out[1].append(torch.einsum("...ij,...j->...i", y[2], x[1]))
-        eps_m = torch.einsum("ikl,...k,...lj->...ij", _eps(x[1]), x[1], y[2])
+        out[1].append(_einsum("...ij,...j->...i", y[2], x[1]))
+        eps_m = _einsum("ikl,...k,...lj->...ij", _eps(x[1]), x[1], y[2])
         out[2].append(_symtraceless(eps_m))
     if 2 in x and 1 in y:
-        out[1].append(torch.einsum("...ij,...j->...i", x[2], y[1]))
+        out[1].append(_einsum("...ij,...j->...i", x[2], y[1]))
     # 2 x 2
     if 2 in x and 2 in y:
-        out[0].append(torch.einsum("...ij,...ij->...", x[2], y[2]))
-        mn = torch.einsum("...ij,...jk->...ik", x[2], y[2])
-        out[1].append(torch.einsum("ijk,...jk->...i", _eps(mn), mn))
+        out[0].append(_einsum("...ij,...ij->...", x[2], y[2]))
+        mn = _einsum("...ij,...jk->...ik", x[2], y[2])
+        out[1].append(_einsum("ijk,...jk->...i", _eps(mn), mn))
         out[2].append(_symtraceless(mn))
     return {l: v for l, v in out.items() if v}
 
@@ -156,7 +170,7 @@ def forward(cfg: MACEConfig, params, g: GraphBatch):
     h0 = node_repr(cfg, params, g)
     node_e = mlp_apply(params["readout"], h0)[:, 0]
     node_e = node_e * g.node_mask.to(node_e.dtype)
-    return scatter_sum(node_e, g.graph_ids, g.n_graphs)
+    return scatter_rows(node_e, g.graph_ids, g.n_graphs)
 
 
 def _trunk(cfg: MACEConfig, params, g: GraphBatch):
@@ -191,7 +205,7 @@ def _trunk(cfg: MACEConfig, params, g: GraphBatch):
                 else prods[l][0]
             wl = Rw[:, l, :].reshape((-1, C) + (1,) * (stacked.dim() - 2))
             m = stacked * wl * em.reshape((-1,) + (1,) * (stacked.dim() - 1))
-            msg[l] = scatter_sum(m, dst, N)
+            msg[l] = constrain(scatter_rows(m, dst, N))
         A = {l: msg[l] if l in msg else torch.zeros_like(h[l]) for l in h}
 
         # correlation order 3: B1 = A, B2 = A⊗A, B3 = B2⊗A (capped at l≤2)
@@ -210,9 +224,10 @@ def _trunk(cfg: MACEConfig, params, g: GraphBatch):
         h = {0: h[0] + mlp_apply(lp["update0"], _mix(corr[0], lp["mix0"])),
              1: h[1] + _mix(corr[1], lp["mix1"]),
              2: h[2] + _mix(corr[2], lp["mix2"])}
-        return {l: v.to(dt[l]) for l, v in h.items()}
+        return {l: constrain(v.to(dt[l])) for l, v in h.items()}
 
     one_layer = layer_remat(one_layer)
+    h = {l: constrain(v) for l, v in h.items()}
     for lp in params["layers"]:
         h = one_layer(lp, h)
     return h[0], h

@@ -13,8 +13,12 @@ Differences from the JAX module:
 - The tables' gradient is dense, as the reference's is: AdamW's weight
   decay touches every row, so a sparse gradient would compute another
   update.
-- ``param_pspecs`` (row sharding over a model axis) has no one-card
-  counterpart.
+- With DTensor tables, row-sharded over the model axis
+  (:func:`param_pspecs`, DLRM-style table sharding), the one gather runs
+  under ``local_map``: each rank looks up the indices in its row range
+  of every field (zero elsewhere), and the partial sums over the model
+  axis (one nonzero term per element) are reduced across it, the
+  reference's one-hot-partitioned gather and all-reduce.
 
 ``retrieval_score`` covers the retrieval_cand shape: one query embedding
 against 10⁶ candidate item embeddings as a single matrix-vector product.
@@ -27,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import P, is_dtensor, local_offset, run_local
 from repro_torch.sparse.embedding_bag import embedding_bag
 
 
@@ -66,12 +71,58 @@ def init_params(cfg: WideDeepConfig, gen: torch.Generator) -> dict:
     }
 
 
+def param_pspecs(cfg: WideDeepConfig, model_axis="model"):
+    n = len(cfg.mlp_dims) + 1
+    return {
+        "tables": P(None, model_axis, None),
+        "wide_tables": P(None, model_axis, None),
+        "wide_dense": P(None, None),
+        "mlp_w": [P(None, None) for _ in range(n)],
+        "mlp_b": [P(None) for _ in range(n)],
+        "bias": P(None),
+    }
+
+
 def _lookup(tables, flat_idx, mask):
     """Sum-bags of every field in one gather: tables (F, V, d), flat_idx
     (B, F, bag) = f·V + i -> (B, F, d)."""
+    if is_dtensor(tables):
+        return _lookup_sharded(tables, flat_idx, mask)
     Fd, V, d = tables.shape
     return embedding_bag(tables.reshape(Fd * V, d), flat_idx, mask,
                          mode="sum")
+
+
+def _lookup_sharded(tables, flat_idx, mask):
+    """:func:`_lookup` of row-sharded DTensor tables under ``local_map``:
+    each rank's tables hold rows [lo, lo + V_loc) of every field; an
+    index outside them adds a zero row. The result is a partial sum over
+    the axes that split the rows, reduced here to the batch's placements."""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = tables.device_mesh
+    Fd, V, d = tables.shape
+    t_pl = list(tables.placements)
+    lo = local_offset(mesh, t_pl, tables.shape)[1]
+    i_pl = list(flat_idx.placements)
+    out_pl = [Partial() if isinstance(tp, Shard) else ip
+              for tp, ip in zip(t_pl, i_pl)]
+
+    def lookup(tl, il, ml):
+        n = tl.shape[1]
+        f, i = il // V, il % V
+        ok = (i >= lo) & (i < lo + n)
+        if ml is not None:
+            ok = ok & ml
+        local = f * n + (i - lo).clamp(0, n - 1)
+        return embedding_bag(tl.reshape(Fd * n, d), local, ok, mode="sum")
+
+    if mask is None:
+        out = run_local(lambda tl, il: lookup(tl, il, None),
+                        (tables, flat_idx), (t_pl, i_pl), out_pl, mesh)
+    else:
+        out = run_local(lookup, (tables, flat_idx, mask),
+                        (t_pl, i_pl, i_pl), out_pl, mesh)
+    return out.redistribute(mesh, i_pl)
 
 
 def forward(cfg: WideDeepConfig, params, sparse_idx, dense_feats,

@@ -210,6 +210,126 @@ class WorkCounter(TorchDispatchMode):
         return b + k * updated * self_t.element_size()
 
 
+class LocalWorkCounter(WorkCounter):
+    """A :class:`WorkCounter` that counts where the local ops run: an op
+    on DTensors is passed on (``NotImplemented``) to DTensor, whose local
+    ops it then counts on each rank's shards, so flops and bytes are per
+    rank, not global. DTensor's sharding propagation runs each new op
+    signature once on global fake tensors to learn its output's shape;
+    those runs are not counted. ``matmul_flops`` is the part of ``flops``
+    that ``torch.utils.flop_counter`` counts (``FlopCounterMode``'s own
+    formulas: matmuls, convolutions, attention). Each
+    ``_c10d_functional`` collective is recorded in ``collectives`` as
+    (kind, result bytes), not counted as an op (see
+    ``repro_torch.roofline.analysis.collective_bytes``).
+
+    It also tracks the storages the counted ops allocate: ``live_bytes``
+    and its high-water mark ``peak_bytes`` (a storage is freed when its
+    last tensor goes; those of ``external``, the step's arguments, are not
+    the step's)."""
+
+    def __init__(self, external=()):
+        super().__init__()
+        self.matmul_flops = 0
+        self.collectives = []
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._live = {}
+        self._external = {t.untyped_storage()._cdata
+                          for t in _local_leaves(external)}
+        self._paused = 0
+        self._unpatch = None
+
+    def _free(self, key):
+        self.live_bytes -= self._live.pop(key, 0)
+
+    def _track(self, out):
+        import weakref
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._live or key in self._external:
+                continue
+            self._live[key] = st.nbytes()
+            self.live_bytes += self._live[key]
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            weakref.finalize(st, self._free, key)
+
+    def __enter__(self):
+        from torch.distributed.tensor import _redistribute
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+        counter = self
+        patched = []
+
+        def pause(owner, name):
+            orig = getattr(owner, name)
+
+            def uncounted(*args, **kwargs):
+                counter._paused += 1
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    counter._paused -= 1
+
+            setattr(owner, name, uncounted)
+            patched.append((owner, name, orig))
+
+        # DTensor's planning (sharding propagation, its fake runs of each
+        # new op on global shapes, redistribution plans) runs ops only
+        # when its caches miss: none of it is the step's work
+        pause(ShardingPropagator, "_propagate_tensor_meta_non_cached")
+        pause(ShardingPropagator, "propagate_op_sharding_non_cached")
+        pause(_redistribute, "_gen_transform_infos_non_cached")
+
+        def unpatch():
+            for owner, name, orig in reversed(patched):
+                setattr(owner, name, orig)
+        self._unpatch = unpatch
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._unpatch()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._paused:
+            return out
+        ns = func.namespace
+        if ns == "_c10d_functional":
+            from repro_torch.roofline.analysis import C10D_KINDS
+            kind = C10D_KINDS.get(func.overloadpacket.__name__)
+            if kind is not None:
+                self.collectives.append((kind, sum(
+                    _nbytes(t) for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor))))
+            return out
+        if ns in ("c10d", "prim"):
+            return out
+        if func.overloadpacket in flop_registry:
+            self.matmul_flops += int(flop_registry[func.overloadpacket](
+                *args, **kwargs, out_val=out))
+        self._count(func, args, kwargs, out)
+        self._track(out)
+        return out
+
+
+def _local_leaves(tree) -> list:
+    """The tensors of a tree, a DTensor's local shard in its place."""
+    from repro_torch.sharding import is_dtensor
+    return [t.to_local() if is_dtensor(t) else t for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
 def _kernel_state() -> tuple:
     return (mp_ops.launches, Counter(mp_ops.shapes), isect_ops.launches,
             Counter(isect_ops.shapes))

@@ -50,9 +50,9 @@ def init_opt_state(params, state_dtype: torch.dtype | None = None
                    ) -> OptState:
     """Zero moments shaped like ``params`` (in ``state_dtype``, else each
     param's dtype) and step 0, on the params' device."""
-    def z(p):
-        return torch.zeros(p.shape, dtype=state_dtype or p.dtype,
-                           device=p.device)
+    def z(p):       # zeros_like keeps a DTensor param's placements
+        return torch.zeros_like(p, dtype=state_dtype or p.dtype,
+                                memory_format=torch.contiguous_format)
     dev = tree_leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     mu=tree_map(z, params), nu=tree_map(z, params))

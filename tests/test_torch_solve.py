@@ -135,8 +135,9 @@ def test_port_imports_no_jax():
     local rank launcher included, the modules that shard separation,
     batches and the roofline profile, the sparse substrate, the GNN and
     recsys models, their configs, the owner-partitioned block, the meshes
-    and the six examples), and chip_smoke.py's own imports, load no jax
-    and no module of the JAX package."""
+    and the six examples, the sharding plans, the pod dry-run and the
+    roofline table), and chip_smoke.py's own imports, load no jax and no
+    module of the JAX package."""
     code = (
         "import sys, runpy\n"
         "import repro_torch.api, repro_torch.convert\n"
@@ -176,6 +177,8 @@ def test_port_imports_no_jax():
         "import repro_torch.examples.image_segmentation\n"
         "import repro_torch.examples.serve_tiles\n"
         "import repro_torch.examples.distributed_multicut\n"
+        "import repro_torch.sharding, repro_torch.launch.dryrun\n"
+        "import repro_torch.roofline.run\n"
         "runpy.run_path(sys.argv[1], run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
@@ -222,6 +225,11 @@ def test_chip_smoke_rehearsal_on_cpu():
     for name in ("quickstart", "image_segmentation", "serve_tiles",
                  "distributed_multicut"):
         assert f"example {name}: asserts passed" in out.stdout, name
+    assert "phase 14" in out.stdout and "cells traced in" in out.stdout \
+        and ", 0 failures; the child ran" in out.stdout
+    assert "dry-run [16x16] grok-1-314b/long_500k" in out.stdout
+    assert "logits bit-equal True to the plain prefill" in out.stdout
+    assert "dry-run of the same cell: argument bytes" in out.stdout
     if not torch.cuda.is_available():
         bare = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                               cwd=ROOT, env=env, capture_output=True,
