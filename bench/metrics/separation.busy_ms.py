@@ -1,0 +1,7 @@
+"""separation.busy_ms: device time of what was launched inside the
+repro.separation ranges, per solve of the traced window."""
+from ramabench.readers import phase_ms_per_solve
+
+
+def read(run):
+    return phase_ms_per_solve(run, "repro.separation", "busy_s")

@@ -1,0 +1,7 @@
+"""separation.host_ms: the host span of the repro.separation ranges, per
+solve of the traced window."""
+from ramabench.readers import phase_ms_per_solve
+
+
+def read(run):
+    return phase_ms_per_solve(run, "repro.separation", "host_s")
