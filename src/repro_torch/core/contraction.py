@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.dist import all_gather, all_max, all_min, \
     all_sum_int, blocked_sum, combine_node_best, edge_range_start
 from repro_torch.core.graph import CsrGraph, MulticutInstance, \
@@ -49,28 +50,48 @@ def _scatter_extreme(n: int, fill, index, src, reduce: str):
 # Connected components
 # ---------------------------------------------------------------------------
 
-def connected_components(u, v, edge_mask, num_nodes: int):
+def _propagate(labels, step, site: str):
+    """Run ``step`` (labels -> labels) in blocks of ``CC_CHECK_EVERY`` until
+    a block changes nothing; each block ends in one convergence check, a
+    host sync (site ``cc_check``). One ``contraction.cc`` span, with the
+    caller's ``site`` and the ``steps`` run."""
+    with obs.phase("contraction.cc", site=site) as sp:
+        checks = 0
+        while True:
+            prev = labels
+            for _ in range(CC_CHECK_EVERY):
+                labels = step(labels)
+            checks += 1
+            if not bool((labels != prev).any()):
+                break
+        obs.count_sync("cc_check", labels.device, checks)
+        sp.set(steps=CC_CHECK_EVERY * checks)
+    return labels
+
+
+def connected_components(u, v, edge_mask, num_nodes: int,
+                         site: str = "other"):
     """Min-label propagation with pointer jumping. Returns (N,) labels where
     each node's label is the smallest node id in its component (w.r.t.
-    edges where ``edge_mask`` is True).
+    edges where ``edge_mask`` is True). ``site`` names the caller in the
+    span (``forest_try``, ``forest_keep``, ``merge``).
 
     The reference's ``while_loop`` has no host sync; here each convergence
     test is one, so it runs every ``CC_CHECK_EVERY`` steps (see above)."""
-    labels = torch.arange(num_nodes, dtype=torch.int32, device=u.device)
     ul, vl = u.long(), v.long()
-    while True:
-        prev = labels
-        for _ in range(CC_CHECK_EVERY):
-            lu, lv = labels[ul], labels[vl]
-            m = torch.minimum(lu, lv)
-            new = labels.scatter_reduce(0, ul, torch.where(edge_mask, m, lu),
-                                        "amin", include_self=True)
-            new = new.scatter_reduce(0, vl, torch.where(edge_mask, m, lv),
-                                     "amin", include_self=True)
-            new = new[new.long()]           # pointer jumping (twice)
-            labels = new[new.long()]
-        if not bool((labels != prev).any()):
-            return labels
+
+    def step(labels):
+        lu, lv = labels[ul], labels[vl]
+        m = torch.minimum(lu, lv)
+        new = labels.scatter_reduce(0, ul, torch.where(edge_mask, m, lu),
+                                    "amin", include_self=True)
+        new = new.scatter_reduce(0, vl, torch.where(edge_mask, m, lv),
+                                 "amin", include_self=True)
+        new = new[new.long()]           # pointer jumping (twice)
+        return new[new.long()]
+
+    labels = torch.arange(num_nodes, dtype=torch.int32, device=u.device)
+    return _propagate(labels, step, site)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +164,7 @@ def spanning_forest_contraction(inst: MulticutInstance, rounds: int = 4,
                                 (best_edge >= 0).to(torch.int32), "amax") > 0
         cand = cand & active
         S_try = S | cand
-        labels_try = connected_components(u, v, S_try, N)
+        labels_try = connected_components(u, v, S_try, N, site="forest_try")
         lt_u, lt_v = labels_try[ul], labels_try[vl]
         # conflict: repulsive edge newly internal to a merged component
         conflict = neg & (lt_u == lt_v) & (labels[ul] != labels[vl])
@@ -151,7 +172,7 @@ def spanning_forest_contraction(inst: MulticutInstance, rounds: int = 4,
                                   "amax") > 0
         keep = cand & ~frozen[lt_u.long()] & ~frozen[lt_v.long()]
         S = S | keep
-        labels = connected_components(u, v, S, N)
+        labels = connected_components(u, v, S, N, site="forest_keep")
     return S
 
 
@@ -162,7 +183,9 @@ def choose_contraction_set(inst: MulticutInstance, matching_rounds: int = 3,
     ``switch_frac * |V|`` edges, use the spanning forest instead (both are
     computed and selected on the device, no host sync). Never returns fewer
     edges than the matching found. ``contract_frac`` > 0 keeps only edges
-    above that fraction of the round's maximum positive cost."""
+    above that fraction of the round's maximum positive cost. The
+    ``contraction.forest`` span's ``used`` says whether the forest's set
+    was the one taken."""
     min_cost = 0.0
     if contract_frac > 0.0:
         cmax = torch.where(inst.edge_valid, inst.cost,
@@ -173,9 +196,12 @@ def choose_contraction_set(inst: MulticutInstance, matching_rounds: int = 3,
     n_nodes = inst.node_valid.sum()
     n_match = S_match.sum()
     enough = n_match >= switch_frac * n_nodes
-    S_forest = spanning_forest_contraction(inst, rounds=forest_rounds,
-                                           min_cost=min_cost)
+    with obs.phase("contraction.forest") as forest:
+        S_forest = spanning_forest_contraction(inst, rounds=forest_rounds,
+                                               min_cost=min_cost)
     use_match = enough | (S_forest.sum() < n_match)
+    if forest:
+        forest.set(used=~use_match)
     return torch.where(use_match, S_match, S_forest)
 
 
@@ -198,7 +224,7 @@ def _fixed_order_run_sum(values, seg, is_entry, num_segments: int):
     and each segment is added one entry at a time from 0.0 — a fixed order
     with no sort and no atomics, the same on the CPU and the card, and
     equal to the reference's sequential segment_sum. One host sync (the
-    longest segment)."""
+    longest segment, site ``run_sum_len``)."""
     n = values.shape[0]
     dest = torch.where(is_entry, torch.cumsum(is_entry.to(torch.int64), 0)
                        - 1, torch.full_like(seg, n, dtype=torch.int64))
@@ -212,7 +238,10 @@ def _fixed_order_run_sum(values, seg, is_entry, num_segments: int):
                          torch.ones_like(dest))
     lengths = lengths[:num_segments]
     starts = torch.cumsum(lengths, 0) - lengths
-    max_len = int(lengths.max()) if num_segments else 0
+    max_len = 0
+    if num_segments:
+        max_len = int(lengths.max())
+        obs.count_sync("run_sum_len", lengths.device)
     return sequential_sums(data, starts, lengths, max_len)
 
 
@@ -223,7 +252,8 @@ def _contract_core(inst: MulticutInstance, S: torch.Tensor):
     (ContractionResult, CsrGraph)."""
     N, E = inst.num_nodes, inst.num_edges
     dev = inst.u.device
-    labels = connected_components(inst.u, inst.v, S & inst.edge_valid, N)
+    labels = connected_components(inst.u, inst.v, S & inst.edge_valid, N,
+                                  site="merge")
     ar_n = torch.arange(N, dtype=torch.int32, device=dev)
     is_root = (labels == ar_n) & inst.node_valid
     new_id = torch.cumsum(is_root.to(torch.int32), 0, dtype=torch.int32) - 1
@@ -334,29 +364,27 @@ def contract_csr(inst: MulticutInstance, S: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def connected_components_sharded(u_loc, v_loc, edge_mask_loc, num_nodes: int,
-                                 group):
+                                 group, site: str = "other"):
     """Sharded :func:`connected_components`: each rank min-scatters its own
     edges, an all_min fuses the partial scatters (equal to the scatter over
     all edges), then the pointer jumping runs on the replicated labels.
     The label trajectory is the replicated loop's, so every rank takes
-    the same convergence branch."""
-    labels = torch.arange(num_nodes, dtype=torch.int32, device=u_loc.device)
+    the same convergence branch. ``site`` as in the replicated one."""
     ul, vl = u_loc.long(), v_loc.long()
-    while True:
-        prev = labels
-        for _ in range(CC_CHECK_EVERY):
-            lu, lv = labels[ul], labels[vl]
-            m = torch.minimum(lu, lv)
-            new = labels.scatter_reduce(0, ul,
-                                        torch.where(edge_mask_loc, m, lu),
-                                        "amin", include_self=True)
-            new = new.scatter_reduce(0, vl, torch.where(edge_mask_loc, m, lv),
-                                     "amin", include_self=True)
-            new = all_min(new, group)
-            new = new[new.long()]           # pointer jumping (twice)
-            labels = new[new.long()]
-        if not bool((labels != prev).any()):
-            return labels
+
+    def step(labels):
+        lu, lv = labels[ul], labels[vl]
+        m = torch.minimum(lu, lv)
+        new = labels.scatter_reduce(0, ul, torch.where(edge_mask_loc, m, lu),
+                                    "amin", include_self=True)
+        new = new.scatter_reduce(0, vl, torch.where(edge_mask_loc, m, lv),
+                                 "amin", include_self=True)
+        new = all_min(new, group)
+        new = new[new.long()]           # pointer jumping (twice)
+        return new[new.long()]
+
+    labels = torch.arange(num_nodes, dtype=torch.int32, device=u_loc.device)
+    return _propagate(labels, step, site)
 
 
 def _node_best_edge_sharded(seg0, seg1, cost_loc, active_loc,
@@ -435,14 +463,15 @@ def spanning_forest_sharded(u_loc, v_loc, cost_loc, ev_loc, node_valid,
         cand = cand & active
         S_try = S | cand
         labels_try = connected_components_sharded(u_loc, v_loc, S_try, N,
-                                                  group)
+                                                  group, site="forest_try")
         lt_u, lt_v = labels_try[ul], labels_try[vl]
         conflict = neg & (lt_u == lt_v) & (labels[ul] != labels[vl])
         fr = _scatter_extreme(N, 0, lt_u, conflict.to(torch.int32), "amax")
         frozen = all_max(fr, group) > 0
         keep = cand & ~frozen[lt_u.long()] & ~frozen[lt_v.long()]
         S = S | keep
-        labels = connected_components_sharded(u_loc, v_loc, S, N, group)
+        labels = connected_components_sharded(u_loc, v_loc, S, N, group,
+                                              site="forest_keep")
     return S
 
 
@@ -464,11 +493,14 @@ def choose_contraction_set_sharded(u_loc, v_loc, cost_loc, ev_loc,
                                        shards, group)
     n_match = all_sum_int(S_match.sum(), group)
     enough = n_match >= switch_frac * node_valid.sum()
-    S_forest = spanning_forest_sharded(u_loc, v_loc, cost_loc, ev_loc,
-                                       node_valid, forest_rounds, min_cost,
-                                       shards, group)
+    with obs.phase("contraction.forest") as forest:
+        S_forest = spanning_forest_sharded(u_loc, v_loc, cost_loc, ev_loc,
+                                           node_valid, forest_rounds,
+                                           min_cost, shards, group)
     n_forest = all_sum_int(S_forest.sum(), group)
     use_match = enough | (n_forest < n_match)
+    if forest:
+        forest.set(used=~use_match)
     return torch.where(use_match, S_match, S_forest)
 
 
@@ -513,13 +545,13 @@ def contract_sharded(u_loc, v_loc, cost_loc, ev_loc, node_valid, S_loc,
     (fu < fv) entries before the (fu > fv) ones, which differs from its
     own replicated sum on a pair merged from three or more edges of both
     orientations; the port keeps the replicated order. One host sync (the
-    longest merged run)."""
+    longest merged run, site ``run_sum_len``)."""
     N = node_valid.shape[0]
     E_loc = u_loc.shape[0]
     dev = u_loc.device
     e0 = edge_range_start(E_loc, group)
     labels = connected_components_sharded(u_loc, v_loc, S_loc & ev_loc, N,
-                                          group)
+                                          group, site="merge")
     ar_n = torch.arange(N, dtype=torch.int32, device=dev)
     is_root = (labels == ar_n) & node_valid
     new_id = torch.cumsum(is_root.to(torch.int32), 0, dtype=torch.int32) - 1
@@ -561,6 +593,7 @@ def contract_sharded(u_loc, v_loc, cost_loc, ev_loc, node_valid, S_loc,
         .scatter_add_(0, seg, torch.ones_like(seg))[:E_loc]
     starts = torch.cumsum(lengths, 0) - lengths
     c2 = sequential_sums(gc[perm], starts, lengths, int(lengths.max()))
+    obs.count_sync("run_sum_len", dev)
 
     idx = e0 + torch.arange(E_loc, dtype=torch.int64, device=dev)
     ev2 = idx < n_unique

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import dist as _dist
 from repro_torch.core.contraction import adjacency_dense
 from repro_torch.core.graph import (
@@ -438,7 +439,8 @@ def _map_long_chunks(fn, consts, edge_args, is_long, chunk: int):
     """Long-bucket streamer: run ``fn`` only on chunks holding at least one
     long edge; skipped chunks emit zeros, which :func:`_combine_buckets`
     never reads (None when no chunk runs). The skip is data-dependent, so
-    it costs one host sync per call: all chunks' flags are read at once."""
+    it costs one host sync per call (site ``long_bucket``): all chunks'
+    flags are read at once."""
     M = edge_args[0].shape[0]
     C = max(1, min(chunk, M))
     Mp = -(-M // C) * C
@@ -446,6 +448,7 @@ def _map_long_chunks(fn, consts, edge_args, is_long, chunk: int):
     lng = _pad_batch_axis(is_long, Mp - M)
     n_chunks = Mp // C
     has_long = lng.reshape(n_chunks, C).any(dim=1).tolist()
+    obs.count_sync("long_bucket", lng.device)
     if not any(has_long):
         return None
     outs = [fn(consts, *(a[c * C:(c + 1) * C] for a in padded))

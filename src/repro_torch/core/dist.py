@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core.graph import MulticutInstance, make_instance, \
     to_host_edges
 
@@ -96,10 +97,12 @@ def _through_host(x: torch.Tensor, group) -> bool:
 
 def _wire(x: torch.Tensor, group) -> torch.Tensor:
     """The tensor a collective sends: bool as uint8, CUDA through host
-    memory on gloo, contiguous."""
+    memory on gloo (a copy that waits for the device: site
+    ``collective_to_host`` of the solve path's sync counter), contiguous."""
     if x.dtype is torch.bool:
         x = x.to(torch.uint8)
     if _through_host(x, group):
+        obs.count_sync("collective_to_host", x.device)
         x = x.cpu()
     return x.contiguous()
 
@@ -129,6 +132,10 @@ def _count_sent(x: torch.Tensor, group) -> None:
 
 
 def _unwire(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The collective's result as ``like``: back from host memory a copy
+    that waits for the device (site ``collective_from_host``)."""
+    if y.device != like.device:
+        obs.count_sync("collective_from_host", like.device)
     return y.to(device=like.device, dtype=like.dtype)
 
 

@@ -47,8 +47,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.core.contraction import choose_contraction_set_sharded, \
     contract_sharded
 from repro_torch.core.cycles import _topk_lowest_index, \
@@ -204,15 +204,15 @@ def _sharded_pd_round(u_loc, v_loc, cost_loc, ev_loc, node_valid, csr_loc,
     gain goes through :func:`blocked_sum`, identical across shard counts."""
     N = node_valid.shape[0]
     E_loc = u_loc.shape[0]
-    with record_function("repro.separation"):
+    with obs.phase("separation", range="repro.separation"):
         sep = _separate_triangles_state_sharded(
             u_loc, v_loc, cost_loc, ev_loc, csr_loc, N, cfg, shards, group,
             intersect, with_aux=with_aux)
         tri, tri_ok = sep[0], sep[1]
-    with record_function("repro.message_passing"):
+    with obs.phase("message_passing", range="repro.message_passing"):
         c_rep_loc, lb = run_message_passing_sharded(
             cost_loc, ev_loc, tri, tri_ok, cfg.mp_iters, shards, group, mp)
-    with record_function("repro.contraction"):
+    with obs.phase("contraction", range="repro.contraction"):
         S_loc = choose_contraction_set_sharded(
             u_loc, v_loc, c_rep_loc, ev_loc, node_valid,
             cfg.matching_rounds, cfg.forest_rounds, cfg.switch_frac,
@@ -250,7 +250,8 @@ def _rank_range(inst, shards: int, rank: int):
 def _solve_rank(inst, cfg, shards: int, group, rank: int, mp, intersect,
                 trace: bool):
     """The round loop on one rank of the state group."""
-    from repro_torch.core.solver import SolveResult
+    from repro_torch.core.solver import SolveResult, _exit_read, \
+        _host_scalar
     N, R = inst.num_nodes, cfg.max_rounds
     dev = inst.device
     u0, v0, c0, ev0 = _rank_range(inst, shards, rank)
@@ -272,30 +273,36 @@ def _solve_rank(inst, cfg, shards: int, group, rank: int, mp, intersect,
     lb0 = None
     r = 0
     while r < R:
-        out = _sharded_pd_round(u, v, c, ev, nv, csr, cfg, shards, group,
-                                mp, intersect, with_aux=trace)
-        con, lb = out[0], out[1]
-        mapping = con.mapping[mapping.long()]
-        if r == 0:
-            lb0 = lb
-        hist_lb[r] = lb
-        hist_nc[r] = con.n_contracted.to(torch.int32)
-        hist_nk[r] = con.n_new.to(torch.int32)
-        if trace:
-            n_cyc, gain, she, shk, shh = out[2]
-            trace_set_round(tr, r, lower_bound=hist_lb[r],
-                            objective=objective(mapping), n_cycles=n_cyc,
-                            n_contracted=hist_nc[r], n_clusters=hist_nk[r],
-                            mp_improvement=gain, shard_edges=she,
-                            shard_topk=shk, shard_halo=shh)
-        u, v, c, ev, nv, csr = (con.u2, con.v2, con.c2, con.ev2,
-                                con.node_valid, con.csr)
-        r += 1
-        if int(con.n_contracted) == 0:      # summed over ranks: lockstep
+        with obs.phase("round", r=r, slots=u.shape[0]) as rnd:
+            if rnd:
+                rnd.set(live_edges=ev.sum())
+            out = _sharded_pd_round(u, v, c, ev, nv, csr, cfg, shards, group,
+                                    mp, intersect, with_aux=trace)
+            con, lb = out[0], out[1]
+            mapping = con.mapping[mapping.long()]
+            if r == 0:
+                lb0 = lb
+            hist_lb[r] = lb
+            hist_nc[r] = con.n_contracted.to(torch.int32)
+            hist_nk[r] = con.n_new.to(torch.int32)
+            if trace:
+                n_cyc, gain, she, shk, shh = out[2]
+                trace_set_round(tr, r, lower_bound=hist_lb[r],
+                                objective=objective(mapping),
+                                n_cycles=n_cyc, n_contracted=hist_nc[r],
+                                n_clusters=hist_nk[r], mp_improvement=gain,
+                                shard_edges=she, shard_topk=shk,
+                                shard_halo=shh)
+            u, v, c, ev, nv, csr = (con.u2, con.v2, con.c2, con.ev2,
+                                    con.node_valid, con.csr)
+            r += 1
+            # summed over ranks: lockstep
+            done = _exit_read(con.n_contracted)
+        if done:
             break
     res = SolveResult(labels=mapping, objective=objective(mapping),
                       lower_bound=lb0.to(torch.float32),
-                      rounds=torch.tensor(r, dtype=torch.int32, device=dev),
+                      rounds=_host_scalar(r, torch.int32, dev),
                       lb_history=hist_lb, n_contracted=hist_nc,
                       n_clusters=hist_nk)
     return res, tr

@@ -17,8 +17,10 @@ the dense path rebuilds its (N, N) matrices each round.
 The reference runs the outer loops as ``lax.while_loop``s with no host
 sync. Torch runs eagerly, so P and PD read the round's contraction count
 to exit early on zero — one host sync per round — and the connected
-components and long-bucket separation pass add their own. D is a fixed
-number of rounds and needs no exit sync. CUDA graphs come later.
+components and long-bucket separation pass add their own; each is counted
+where it happens (``solver_syncs_total`` in
+:func:`repro_torch.obs.solver_metrics`). D is a fixed number of rounds
+and needs no exit sync. CUDA graphs come later.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.core.contraction import choose_contraction_set, \
     contract, contract_csr
 from repro_torch.core.cycles import separate
@@ -139,14 +141,15 @@ def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
     ``update_csr`` (sparse path), else None. ``node_mask`` restricts the
     round's repulsive edges to a frontier. The ``repro.*`` ranges name
     the round's phases in a torch.profiler trace, as the reference's
-    ``jax.named_scope``s do in its HLO.
+    ``jax.named_scope``s do in its HLO; :func:`repro_torch.obs.phase`
+    opens them, with the phases' spans.
 
     ``with_aux`` appends a telemetry tuple ``(n_cycles,
     mp_improvement)``: conflicted cycles found by separation, and the LB
     gain of the MP phase over the trivial bound Σ_e min(0, c) on the
     round's pre-MP costs. Both only read what the round produced; the sum
     is a ``torch.sum`` that feeds no decision."""
-    with record_function("repro.separation"):
+    with obs.phase("separation", range="repro.separation"):
         sep = separate(inst, max_neg=cfg.max_neg,
                        max_tri_per_edge=cfg.max_tri_per_edge,
                        with_cycles45=with45, nbr_k=cfg.nbr_k,
@@ -161,7 +164,7 @@ def _dual_round_core(inst: MulticutInstance, cfg: SolverConfig,
     inst2 = sep.instance
     if mp is None:
         mp = mp_phase_per_edge
-    with record_function("repro.message_passing"):
+    with obs.phase("message_passing", range="repro.message_passing"):
         _, c_rep, lb = mp(inst2.cost, inst2.edge_valid, sep.triangles.edges,
                           sep.triangles.valid, cfg.mp_iters)
     if not with_aux:
@@ -181,7 +184,7 @@ def _contraction_set(inst: MulticutInstance, cfg: SolverConfig):
 
 
 def _primal_round_core(inst: MulticutInstance, cfg: SolverConfig):
-    with record_function("repro.contraction"):
+    with obs.phase("contraction", range="repro.contraction"):
         return contract(inst, _contraction_set(inst, cfg))
 
 
@@ -221,7 +224,7 @@ def fused_pd_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
                            csr=state.csr, node_mask=node_mask,
                            with_aux=with_aux)
     inst3 = out[0]._replace(cost=out[1])
-    with record_function("repro.contraction"):
+    with obs.phase("contraction", range="repro.contraction"):
         res, csr2 = contract_csr(inst3, _contraction_set(inst3, cfg))
     state2 = SolverState(instance=res.instance, csr=csr2,
                          mapping=res.mapping[state.mapping.long()])
@@ -231,6 +234,20 @@ def fused_pd_round_state(state: SolverState, cfg: SolverConfig, with45: bool,
 def _live_edges1(inst: MulticutInstance) -> torch.Tensor:
     """(1,) i32 live-edge count: the S = 1 row of SolveTrace.shard_edges."""
     return inst.edge_valid.sum().to(torch.int32).reshape(1)
+
+
+def _exit_read(n_contracted: torch.Tensor) -> bool:
+    """Whether the round contracted nothing: the round's one host sync
+    (site ``round_exit``)."""
+    obs.count_sync("round_exit", n_contracted.device)
+    return int(n_contracted) == 0
+
+
+def _host_scalar(value, dtype, dev) -> torch.Tensor:
+    """A 0-d tensor of a host number on ``dev``: a host-to-device copy that
+    waits for the device (site ``result_scalar``)."""
+    obs.count_sync("result_scalar", torch.device(dev))
+    return torch.tensor(value, dtype=dtype, device=dev)
 
 
 def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig,
@@ -251,23 +268,28 @@ def _solve_p_device(inst: MulticutInstance, cfg: SolverConfig,
     cur = inst
     r = 0
     while r < R:
-        res = _primal_round_core(cur, cfg)
-        hist_nc[r] = res.n_contracted.to(torch.int32)
-        hist_nk[r] = res.n_new.to(torch.int32)
-        mapping = res.mapping[mapping.long()]
-        cur = res.instance
-        if trace:
-            trace_set_round(tr, r, objective=inst.objective(mapping),
-                            n_contracted=hist_nc[r], n_clusters=hist_nk[r],
-                            shard_edges=_live_edges1(cur))
-        r += 1
-        if int(res.n_contracted) == 0:
+        with obs.phase("round", r=r, slots=cur.num_edges) as rnd:
+            if rnd:
+                rnd.set(live_edges=cur.edge_valid.sum())
+            res = _primal_round_core(cur, cfg)
+            hist_nc[r] = res.n_contracted.to(torch.int32)
+            hist_nk[r] = res.n_new.to(torch.int32)
+            mapping = res.mapping[mapping.long()]
+            cur = res.instance
+            if trace:
+                trace_set_round(tr, r, objective=inst.objective(mapping),
+                                n_contracted=hist_nc[r],
+                                n_clusters=hist_nk[r],
+                                shard_edges=_live_edges1(cur))
+            r += 1
+            done = _exit_read(res.n_contracted)
+        if done:
             break
     ninf = float("-inf")
     out = SolveResult(
         labels=mapping, objective=inst.objective(mapping),
-        lower_bound=torch.tensor(ninf, dtype=torch.float32, device=dev),
-        rounds=torch.tensor(r, dtype=torch.int32, device=dev),
+        lower_bound=_host_scalar(ninf, torch.float32, dev),
+        rounds=_host_scalar(r, torch.int32, dev),
         lb_history=torch.full((R,), ninf, dtype=torch.float32, device=dev),
         n_contracted=hist_nc, n_clusters=hist_nk)
     return (out, tr) if trace else out
@@ -316,29 +338,36 @@ def _solve_pd_device(inst: MulticutInstance, cfg: SolverConfig, plus: bool,
     lb0 = None
     r = 0
     while r < R:
-        out = step(state, cfg, with45_first if r == 0 else with45_rest,
-                   mp, intersect, node_mask=sep_mask0 if r == 0 else None,
-                   with_aux=trace)
-        state, lb, res = out[:3]
-        if r == 0:
-            lb0 = lb
-        hist_lb[r] = lb
-        hist_nc[r] = res.n_contracted.to(torch.int32)
-        hist_nk[r] = res.n_new.to(torch.int32)
-        if trace:
-            n_cyc, mp_gain = out[3]
-            trace_set_round(tr, r, lower_bound=hist_lb[r],
-                            objective=inst.objective(state.mapping),
-                            n_cycles=n_cyc, n_contracted=hist_nc[r],
-                            n_clusters=hist_nk[r], mp_improvement=mp_gain,
-                            shard_edges=_live_edges1(state.instance))
-        r += 1
-        if int(res.n_contracted) == 0:
+        with obs.phase("round", r=r,
+                       slots=state.instance.num_edges) as rnd:
+            if rnd:
+                rnd.set(live_edges=state.instance.edge_valid.sum())
+            out = step(state, cfg, with45_first if r == 0 else with45_rest,
+                       mp, intersect,
+                       node_mask=sep_mask0 if r == 0 else None,
+                       with_aux=trace)
+            state, lb, res = out[:3]
+            if r == 0:
+                lb0 = lb
+            hist_lb[r] = lb
+            hist_nc[r] = res.n_contracted.to(torch.int32)
+            hist_nk[r] = res.n_new.to(torch.int32)
+            if trace:
+                n_cyc, mp_gain = out[3]
+                trace_set_round(tr, r, lower_bound=hist_lb[r],
+                                objective=inst.objective(state.mapping),
+                                n_cycles=n_cyc, n_contracted=hist_nc[r],
+                                n_clusters=hist_nk[r],
+                                mp_improvement=mp_gain,
+                                shard_edges=_live_edges1(state.instance))
+            r += 1
+            done = _exit_read(res.n_contracted)
+        if done:
             break
     labels = state.mapping
     res = SolveResult(labels=labels, objective=inst.objective(labels),
                       lower_bound=lb0.to(torch.float32),
-                      rounds=torch.tensor(r, dtype=torch.int32, device=dev),
+                      rounds=_host_scalar(r, torch.int32, dev),
                       lb_history=hist_lb, n_contracted=hist_nc,
                       n_clusters=hist_nk)
     return (res, tr) if trace else res
@@ -374,25 +403,27 @@ def _solve_d_device(inst: MulticutInstance, cfg: SolverConfig, mp=None,
     tri_lb_sum = torch.zeros((), dtype=torch.float32, device=dev)
     per_round = []
     aux = []
-    for _ in range(R):
-        out = _dual_round_core(cur, cfg, True, mp, intersect, csr=csr,
-                               update_csr=sparse, with_aux=trace)
-        cur2, c_rep, lb, csr = out[:4]
-        aux.extend(out[4:])
-        edge_lb = torch.where(cur2.edge_valid,
-                              torch.clamp(c_rep, max=0.0),
-                              torch.zeros_like(c_rep)).sum()
-        tri_lb_sum = tri_lb_sum + (lb - edge_lb)
-        per_round.append(tri_lb_sum + edge_lb)
-        cur = cur2._replace(cost=c_rep)
+    for r in range(R):
+        with obs.phase("round", r=r, slots=cur.num_edges) as rnd:
+            if rnd:
+                rnd.set(live_edges=cur.edge_valid.sum())
+            out = _dual_round_core(cur, cfg, True, mp, intersect, csr=csr,
+                                   update_csr=sparse, with_aux=trace)
+            cur2, c_rep, lb, csr = out[:4]
+            aux.extend(out[4:])
+            edge_lb = torch.where(cur2.edge_valid,
+                                  torch.clamp(c_rep, max=0.0),
+                                  torch.zeros_like(c_rep)).sum()
+            tri_lb_sum = tri_lb_sum + (lb - edge_lb)
+            per_round.append(tri_lb_sum + edge_lb)
+            cur = cur2._replace(cost=c_rep)
     lb_history = torch.stack(per_round).to(torch.float32)
     n_nodes = inst.node_valid.sum().to(torch.int32)
     res = SolveResult(
         labels=torch.arange(N, dtype=torch.int32, device=dev),
-        objective=torch.tensor(float("inf"), dtype=torch.float32,
-                               device=dev),
+        objective=_host_scalar(float("inf"), torch.float32, dev),
         lower_bound=lb_history[-1],
-        rounds=torch.tensor(R, dtype=torch.int32, device=dev),
+        rounds=_host_scalar(R, torch.int32, dev),
         lb_history=lb_history,
         n_contracted=torch.zeros((R,), dtype=torch.int32, device=dev),
         n_clusters=n_nodes.expand(R).clone())
@@ -428,7 +459,12 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
     ``trace=True`` returns ``(SolveResult, SolveTrace)``: per-round
     telemetry (:mod:`repro_torch.obs.trace`) written on the device as the
     rounds run, with no extra host sync; the result is bit-identical to
-    the untraced solve's."""
+    the untraced solve's.
+
+    While tracing is on (:mod:`repro_torch.obs.phases`) the solve is one
+    ``solve`` span (the mode, padded nodes and edge slots, and the change
+    of the solve path's sync counter over the solve) over a ``round`` span
+    a round; the result is the same bit for bit."""
     if cfg.graph_impl not in GRAPH_IMPLS:
         raise ValueError(f"unknown graph_impl {cfg.graph_impl!r}; expected "
                          f"one of {GRAPH_IMPLS}")
@@ -444,18 +480,21 @@ def solve_device(inst: MulticutInstance, mode: str = "pd",
             f"state_shards requires mode='pd' (got {mode!r}); the sharded "
             f"solve supports 3-cycle separation only, and p/d have no "
             f"edge-partitioned round to run")
-    if cfg.state_shards:
-        from repro_torch.core.sharded import solve_state_sharded
-        return solve_state_sharded(inst, cfg, mode=mode, mp=mp,
-                                   intersect=intersect, trace=trace)
-    if mode == "p":
-        return _solve_p_device(inst, cfg, trace=trace)
-    if mode == "d":
-        res, _, tr = _solve_d_device(inst, cfg, mp, intersect, trace=trace)
-        return (res, tr) if trace else res
-    return _solve_pd_device(inst, cfg, plus=(mode == "pd+"), mp=mp,
-                            intersect=intersect, csr0=csr,
-                            sep_mask0=sep_node_mask, trace=trace)
+    with obs.phase("solve", device=inst.device, mode=mode,
+                   nodes=inst.num_nodes, slots=inst.num_edges):
+        if cfg.state_shards:
+            from repro_torch.core.sharded import solve_state_sharded
+            return solve_state_sharded(inst, cfg, mode=mode, mp=mp,
+                                       intersect=intersect, trace=trace)
+        if mode == "p":
+            return _solve_p_device(inst, cfg, trace=trace)
+        if mode == "d":
+            res, _, tr = _solve_d_device(inst, cfg, mp, intersect,
+                                         trace=trace)
+            return (res, tr) if trace else res
+        return _solve_pd_device(inst, cfg, plus=(mode == "pd+"), mp=mp,
+                                intersect=intersect, csr0=csr,
+                                sep_mask0=sep_node_mask, trace=trace)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,10 @@
   Chrome-trace / Perfetto JSON export.
 * :mod:`.metrics` — :class:`MetricsRegistry` of counters, gauges and
   log-bucketed histograms, with JSON snapshot and Prometheus text.
+* :mod:`.phases` — :func:`phase`, the spans of the solve path's phases
+  (on under a profiler or :func:`solver_tracing`, read through
+  :func:`solver_spans`), and :func:`solver_metrics`, its always-on
+  counter of host syncs.
 
 :func:`register_compile_metrics` folds the registry accounting of
 :mod:`repro_torch.api` (``trace_count``, ``cache_info``) into a metrics
@@ -16,6 +20,8 @@ from __future__ import annotations
 
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, quantile_error_bound)
+from repro_torch.obs.phases import (count_sync, phase, solver_metrics,
+                                    solver_spans, solver_tracing, tracing)
 from repro_torch.obs.spans import Span, SpanRecorder
 from repro_torch.obs.trace import (SolveTrace, init_trace, summarize,
                                    trace_set_round)
@@ -26,6 +32,8 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "quantile_error_bound",
     "register_compile_metrics",
+    "phase", "solver_tracing", "tracing", "solver_spans", "solver_metrics",
+    "count_sync",
 ]
 
 

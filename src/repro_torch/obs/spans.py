@@ -99,6 +99,16 @@ class SpanRecorder:
             return
         self._spans.append(Span(name, cat, t_s, None, tid, args))
 
+    def append(self, span: Span) -> bool:
+        """Adopt a span built by the caller, who may finish it later (the
+        solve path's phases append a span when it opens, so an enclosed
+        span can name it by index). False when dropped."""
+        if len(self._spans) >= self.max_events:
+            self.n_dropped += 1
+            return False
+        self._spans.append(span)
+        return True
+
     def clear(self) -> None:
         self._spans.clear()
         self.n_dropped = 0
