@@ -180,12 +180,17 @@ def choose_contraction_set(inst: MulticutInstance, matching_rounds: int = 3,
                            forest_rounds: int = 4, switch_frac: float = 0.1,
                            contract_frac: float = 0.0):
     """Paper §3.1: matching first; if it matched fewer than
-    ``switch_frac * |V|`` edges, use the spanning forest instead (both are
-    computed and selected on the device, no host sync). Never returns fewer
-    edges than the matching found. ``contract_frac`` > 0 keeps only edges
-    above that fraction of the round's maximum positive cost. The
-    ``contraction.forest`` span's ``used`` says whether the forest's set
-    was the one taken."""
+    ``switch_frac * |V|`` edges, use the spanning forest instead. Never
+    returns fewer edges than the matching found. ``contract_frac`` > 0
+    keeps only edges above that fraction of the round's maximum positive
+    cost.
+
+    The reference computes both sets and selects on the device; here the
+    switch is read on the host (one sync a call, site ``forest_gate``)
+    and the forest runs only where the matching falls short, which
+    returns the same set. The ``contraction.forest`` span opens only
+    then; its ``used`` says whether the forest's set was the one
+    taken."""
     min_cost = 0.0
     if contract_frac > 0.0:
         cmax = torch.where(inst.edge_valid, inst.cost,
@@ -196,10 +201,13 @@ def choose_contraction_set(inst: MulticutInstance, matching_rounds: int = 3,
     n_nodes = inst.node_valid.sum()
     n_match = S_match.sum()
     enough = n_match >= switch_frac * n_nodes
+    obs.count_sync("forest_gate", enough.device)
+    if bool(enough):
+        return S_match
     with obs.phase("contraction.forest") as forest:
         S_forest = spanning_forest_contraction(inst, rounds=forest_rounds,
                                                min_cost=min_cost)
-    use_match = enough | (S_forest.sum() < n_match)
+    use_match = S_forest.sum() < n_match
     if forest:
         forest.set(used=~use_match)
     return torch.where(use_match, S_match, S_forest)
@@ -481,8 +489,9 @@ def choose_contraction_set_sharded(u_loc, v_loc, cost_loc, ev_loc,
                                    contract_frac: float, shards: int, group):
     """Sharded :func:`choose_contraction_set`. Edge counts cross ranks as
     exact integer sums and the cost ceiling as an all_max, so the
-    matching/forest switch (a device-side select) decides as the
-    replicated one does."""
+    matching/forest switch decides as the replicated one does: every rank
+    reads the same summed matching size at the gate and takes the same
+    branch."""
     min_cost = 0.0
     if contract_frac > 0.0:
         cmax = all_max(torch.where(ev_loc, cost_loc,
@@ -493,12 +502,15 @@ def choose_contraction_set_sharded(u_loc, v_loc, cost_loc, ev_loc,
                                        shards, group)
     n_match = all_sum_int(S_match.sum(), group)
     enough = n_match >= switch_frac * node_valid.sum()
+    obs.count_sync("forest_gate", enough.device)
+    if bool(enough):
+        return S_match
     with obs.phase("contraction.forest") as forest:
         S_forest = spanning_forest_sharded(u_loc, v_loc, cost_loc, ev_loc,
                                            node_valid, forest_rounds,
                                            min_cost, shards, group)
     n_forest = all_sum_int(S_forest.sum(), group)
-    use_match = enough | (n_forest < n_match)
+    use_match = n_forest < n_match
     if forest:
         forest.set(used=~use_match)
     return torch.where(use_match, S_match, S_forest)

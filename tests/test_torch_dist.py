@@ -200,7 +200,8 @@ def test_process_group_refuses_a_surviving_group(monkeypatch, tmp_path):
 def test_cc_and_contraction_set_sharded():
     """The sharded CC, matching/forest switch (plain and with
     contract_frac) against the reference's, exactly, and against the
-    port's replicated functions."""
+    port's replicated functions; ``switch_frac`` 0.0 and 0.1 take the
+    matching at the gate, 1.0 runs the forest (its set taken here)."""
     inst, S = C["inst"], C["S"]
     ji = _ji(inst)
     want = _smap(lambda u, v, m: jc.connected_components_sharded(
@@ -209,15 +210,20 @@ def test_cc_and_contraction_set_sharded():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert torch.equal(got, tc.connected_components(inst.u, inst.v, S, 64))
     for frac in (0.0, 0.5):
-        want = _smap(lambda u, v, c, ev, nv: jc.choose_contraction_set_sharded(
-            u, v, c, ev, nv, 3, 4, 0.1, frac, 1, jd.STATE_AXIS),
-            (E_, E_, E_, E_, P()), E_)(*ji)
-        got = tc.choose_contraction_set_sharded(
-            inst.u, inst.v, inst.cost, inst.edge_valid, inst.node_valid, 3,
-            4, 0.1, frac, 1, None)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-        rep = tc.choose_contraction_set(inst, 3, 4, 0.1, frac)
-        assert torch.equal(got, rep)
+        forest = tc.choose_contraction_set(inst, 3, 4, 1.0, frac)
+        for switch in (0.0, 0.1, 1.0):
+            want = _smap(lambda u, v, c, ev, nv:
+                         jc.choose_contraction_set_sharded(
+                             u, v, c, ev, nv, 3, 4, switch, frac, 1,
+                             jd.STATE_AXIS),
+                         (E_, E_, E_, E_, P()), E_)(*ji)
+            got = tc.choose_contraction_set_sharded(
+                inst.u, inst.v, inst.cost, inst.edge_valid, inst.node_valid,
+                3, 4, switch, frac, 1, None)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            rep = tc.choose_contraction_set(inst, 3, 4, switch, frac)
+            assert torch.equal(got, rep)
+            assert torch.equal(got, forest) == (switch == 1.0)
 
 
 def test_contract_sharded():
@@ -378,6 +384,9 @@ WORKER = textwrap.dedent("""
             sel = tc.choose_contraction_set_sharded(
                 *loc, inst.node_valid, 3, 4, 0.1, 0.0, S, grp)
             out[f"S{S}/choose"] = sel.numpy()
+            sel = tc.choose_contraction_set_sharded(
+                *loc, inst.node_valid, 3, 4, 1.0, 0.0, S, grp)
+            out[f"S{S}/choose_forest"] = sel.numpy()
             con = tc.contract_sharded(*loc, inst.node_valid, rng_(C["S"]),
                                       S, grp)
             for k, x in con._asdict().items():
@@ -455,6 +464,11 @@ def test_gloo_sharded_primitives_invariant(gloo_runs, S):
     np.testing.assert_array_equal(
         _concat(gloo_runs, S, "choose"),
         tc.choose_contraction_set(inst, 3, 4, 0.1, 0.0).numpy())
+    # switch_frac 1.0: every rank reads the summed matching short at the
+    # gate and runs the forest
+    np.testing.assert_array_equal(
+        _concat(gloo_runs, S, "choose_forest"),
+        tc.choose_contraction_set(inst, 3, 4, 1.0, 0.0).numpy())
     one = tc.contract_sharded(*inst, S_mask, 1, None)
     for k, x in one._asdict().items():
         if k == "csr":

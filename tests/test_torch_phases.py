@@ -86,6 +86,23 @@ def _bit_eq(a, b):
         assert x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
 
 
+def _note_gates(monkeypatch):
+    """A list that gets, for each contraction set chosen, whether its
+    matching fell short of ``switch_frac * |V|`` edges (the forest gate
+    reads false and the forest runs), from the matching's own output."""
+    short = []
+    orig = tc.maximum_matching
+    frac = api.SolverConfig().switch_frac
+
+    def noted(inst, rounds=3, min_cost=0.0):
+        S = orig(inst, rounds=rounds, min_cost=min_cost)
+        short.append(bool(S.sum() < frac * inst.node_valid.sum()))
+        return S
+
+    monkeypatch.setattr(tc, "maximum_matching", noted)
+    return short
+
+
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("mode", MODES)
 def test_traced_solve_is_bitwise_identical(mode, impl):
@@ -96,7 +113,8 @@ def test_traced_solve_is_bitwise_identical(mode, impl):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_span_tree_shape(mode):
+def test_span_tree_shape(mode, monkeypatch):
+    short = _note_gates(monkeypatch)
     before = _counters()
     res, spans = _traced(mode, "sparse")
     change = _change(before, _counters())
@@ -126,8 +144,11 @@ def test_span_tree_shape(mode):
         kids = [k.name for k in spans if k.args["parent"] == spans.index(s)]
         assert tuple(kids) == PHASES[mode], (r, kids)
     if "contraction" in PHASES[mode]:
+        # a forest span in exactly the rounds whose gate read false
         forest = [s for s in spans if s.name == "contraction.forest"]
-        assert len(forest) == rounds
+        assert len(short) == rounds
+        assert [s.args["r"] for s in forest] == \
+            [r for r in range(rounds) if short[r]]
         assert all(isinstance(s.args["used"], bool) for s in forest)
 
 
@@ -187,6 +208,7 @@ def test_cc_counts_match_an_independent_count(monkeypatch):
 
     monkeypatch.setattr(tc, "connected_components", noted)
     monkeypatch.setattr(phases, "SYNC_DEVICES", ("cuda", "cpu"))
+    short = _note_gates(monkeypatch)
     before = _counters()
     _, spans = _traced("pd", "sparse")
     change = _change(before, _counters())
@@ -203,8 +225,9 @@ def test_cc_counts_match_an_independent_count(monkeypatch):
             tc.CC_CHECK_EVERY * (math.ceil(k / tc.CC_CHECK_EVERY) + 1)
         if k:
             assert s.args["steps"] >= 8
-    assert {s.args["site"] for s in cc} == {"forest_try", "forest_keep",
-                                            "merge"}
+    # the merge in every round, the forest's two sites where it ran
+    assert {s.args["site"] for s in cc} == {"merge"} | (
+        {"forest_try", "forest_keep"} if any(short) else set())
     assert change["solver_syncs_total.cc_check"] == checks
 
 
@@ -222,6 +245,7 @@ def test_tracing_off_records_nothing_while_counters_count(monkeypatch):
     _solve("pd", "sparse")
     assert _change(before, _counters()) == {}
     monkeypatch.setattr(phases, "SYNC_DEVICES", ("cuda", "cpu"))
+    short = _note_gates(monkeypatch)
     before = _counters()
     res = _solve("pd", "sparse")
     change = _change(before, _counters())
@@ -230,12 +254,14 @@ def test_tracing_off_records_nothing_while_counters_count(monkeypatch):
     assert change["solver_syncs_total.round_exit"] == rounds
     assert change["solver_syncs_total.run_sum_len"] == rounds
     assert change["solver_syncs_total.result_scalar"] == 1
-    # two CC calls a forest round, one a merge, each at least one check
+    assert change["solver_syncs_total.forest_gate"] == rounds == len(short)
+    # a merge every round, and two CC calls a forest round in the rounds
+    # whose gate read false, each at least one check
     assert change["solver_syncs_total.cc_check"] >= \
-        rounds * (2 * api.SolverConfig().forest_rounds + 1)
+        rounds + sum(short) * 2 * api.SolverConfig().forest_rounds
     assert set(change) <= {f"{phases.SYNCS}.{k}" for k in (
         "round_exit", "run_sum_len", "result_scalar", "cc_check",
-        "long_bucket")}
+        "long_bucket", "forest_gate")}
 
 
 def test_recorder_counts_what_it_drops():
