@@ -2,9 +2,10 @@
 
 A cell (``workloads`` entry) names a configuration and a traffic mix;
 the harness reads ``bench/configs/<config>.json`` (the manifest's
-``file``), ``bench/traffic/<traffic>.json``, ``bench/limits/<cell>.json``
-and, for each metric the cell reports, ``bench/metrics/<metric>.py``.
-Nothing here knows a cell by name.
+``file``), the generator that configuration's ``instance`` names,
+``bench/generators/<generator>.py``, ``bench/traffic/<traffic>.json``,
+``bench/limits/<cell>.json`` and, for each metric the cell reports,
+``bench/metrics/<metric>.py``. Nothing here knows a cell by name.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from pathlib import Path
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+GENERATORS = BENCH / "generators"
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -55,22 +57,35 @@ def limits(cell_name: str) -> dict:
     return {k: float(v["limit"]) for k, v in data["numbers"].items()}
 
 
-def reader(metric: str):
-    """The ``read(run)`` function of ``bench/metrics/<metric>.py``."""
-    path = BENCH / "metrics" / f"{metric}.py"
+def _load(path: Path, kind: str, name: str):
     spec = importlib.util.spec_from_file_location(
-        "ramabench_metric_" + metric.replace(".", "_").replace("-", "_"),
+        f"ramabench_{kind}_" + name.replace(".", "_").replace("-", "_"),
         path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str):
+    """The ``read(run)`` function of ``bench/metrics/<metric>.py``."""
+    return _load(BENCH / "metrics" / f"{metric}.py", "metric", metric).read
 
 
 def reference(name: str):
     """The plain reference module ``bench/reference/<name>.py``."""
-    path = BENCH / "reference" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "ramabench_reference_" + name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(BENCH / "reference" / f"{name}.py", "reference", name)
+
+
+def generator(name: str):
+    """The instance generator module ``bench/generators/<name>.py``:
+    ``make(seed=..., chord_slots=..., **settings)``, called by keyword,
+    returns a :class:`ramabench.instances.HostInstance` (distinct pairs
+    ``u < v``, int32 ids in ``[0, num_nodes)``, float32 costs,
+    ``pad_edges = num_edges + chord_slots``, ``planted`` labels of every
+    node), and ``SMALL`` holds settings that a CPU test can hold."""
+    path = GENERATORS / f"{name}.py"
+    if not NAME.match(name) or not path.is_file():
+        have = sorted(p.stem for p in GENERATORS.glob("*.py"))
+        raise ValueError(f"no instance generator {name!r}: "
+                         f"{GENERATORS} has {have}")
+    return _load(path, "generator", name)

@@ -6,21 +6,22 @@ A traffic file is data (``bench/traffic/<name>.json``):
 ``count``
     how many instances of the configuration's sizes the run solves in
     turn, round and round. Instance ``i`` is drawn from seed
-    ``seed + i``, as the program's own ``grid_instance(seed=...)`` would
-    be, so every seed gives the same sizes.
+    ``seed + i``, so every seed gives the same sizes.
 ``mode``
     what ``api.solve`` is asked for.
 
-The configuration's ``instance`` names the generator, its settings and
-the free edge slots after the instance's edges
-(``chord_slots_per_repulsive_edge``, times the solver's repulsive edges
-a round).
+The configuration's ``instance`` names the generator
+(``bench/generators/<generator>.py``, found by
+:func:`ramabench.manifest.generator`), the free edge slots after the
+instance's edges (``chord_slots_per_repulsive_edge``, times the solver's
+repulsive edges a round), and the generator's settings: every other key,
+passed to its ``make`` by keyword, as it stands.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ramabench import instances
+from ramabench import manifest
 
 
 @dataclass
@@ -36,12 +37,9 @@ def make_plan(config: dict, traffic: dict, seed: int,
     chord slots that the configuration asks for."""
     if seed < 0:
         raise ValueError(f"--seed must be a whole number >= 0, got {seed}")
-    gen = dict(config["instance"])
-    if gen.pop("generator") != "grid":
-        raise ValueError("the traffic generator knows the grid generator "
-                         "only")
-    chords = gen.pop("chord_slots_per_repulsive_edge", 0) * max_neg
-    kw = {k: gen[k] for k in ("noise", "n_segments", "long_range")}
-    host = [instances.grid(gen["h"], gen["w"], seed + i, chord_slots=chords,
-                           **kw) for i in range(traffic["count"])]
+    settings = dict(config["instance"])
+    make = manifest.generator(settings.pop("generator")).make
+    chords = settings.pop("chord_slots_per_repulsive_edge", 0) * max_neg
+    host = [make(seed=seed + i, chord_slots=chords, **settings)
+            for i in range(traffic["count"])]
     return Plan(host=host, mode=traffic["mode"])
